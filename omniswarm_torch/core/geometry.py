@@ -1,0 +1,74 @@
+"""4-DoF pose geometry as broadcastable torch operations.
+
+Counterpart of ``omniswarm_tpu/core/geometry.py`` (normalize_angle ..
+delta_pose, :33-80, and the numpy tangent basis, :232). Poses are tensors of
+shape ``(..., 4)`` = ``[x, y, z, yaw]``, points ``(..., 3)``.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+TWO_PI = 2.0 * math.pi
+
+
+def normalize_angle(theta: torch.Tensor) -> torch.Tensor:
+    """Wrap angle(s) to [-pi, pi)."""
+    return theta - TWO_PI * torch.floor((theta + math.pi) / TWO_PI)
+
+
+def yaw_rotate(yaw: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+    """Rotate 3-vector(s) about +z by yaw. vec: (..., 3), yaw: (...)."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    x = c * vec[..., 0] - s * vec[..., 1]
+    y = s * vec[..., 0] + c * vec[..., 1]
+    z = torch.broadcast_to(vec[..., 2], x.shape)
+    return torch.stack([x, y, z], dim=-1)
+
+
+def make_pose(position: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
+    shape = torch.broadcast_shapes(position.shape[:-1], yaw.shape)
+    position = torch.broadcast_to(position, shape + (3,))
+    yaw = torch.broadcast_to(yaw, shape)
+    return torch.cat([position, yaw[..., None]], dim=-1)
+
+
+def pose_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Compose poses: a ∘ b (apply b in a's frame)."""
+    t = yaw_rotate(a[..., 3], b[..., :3]) + a[..., :3]
+    yaw = normalize_angle(a[..., 3] + b[..., 3])
+    return make_pose(t, yaw)
+
+
+def pose_inv(a: torch.Tensor) -> torch.Tensor:
+    """Inverse pose: pose_mul(a, pose_inv(a)) == identity."""
+    yaw = -a[..., 3]
+    t = -yaw_rotate(yaw, a[..., :3])
+    return make_pose(t, normalize_angle(yaw))
+
+
+def delta_pose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Relative pose a^-1 ∘ b as a 4-vector with wrapped yaw."""
+    dt = yaw_rotate(-a[..., 3], b[..., :3] - a[..., :3])
+    dyaw = normalize_angle(b[..., 3] - a[..., 3])
+    return make_pose(dt, dyaw)
+
+
+def tangent_base_from_unit_np(unit_dir):
+    """2x3 orthonormal tangent basis of unit bearing(s), numpy (host side).
+
+    Shapes (..., 3) -> (..., 2, 3): helper axis z unless |dir_z| > 0.99.
+    """
+    unit_dir = np.asarray(unit_dir, np.float32)
+    near_z = np.abs(unit_dir[..., 2]) > 0.99
+    helper = np.where(
+        near_z[..., None],
+        np.asarray([1.0, 0.0, 0.0], np.float32),
+        np.asarray([0.0, 0.0, 1.0], np.float32))
+    proj = np.sum(helper * unit_dir, axis=-1, keepdims=True)
+    b1 = helper - unit_dir * proj
+    b1 = b1 / np.linalg.norm(b1, axis=-1, keepdims=True)
+    b2 = np.cross(unit_dir, b1)
+    return np.stack([b1, b2], axis=-2)

@@ -1,0 +1,35 @@
+"""Matmul-precision control for the solver.
+
+Counterpart of ``omniswarm_tpu/core/precision.py``. On the GPU a float32
+matmul may run through TF32 tensor cores (about three decimal digits), which
+breaks the Newton-Schulz inverses and the refinement passes of the solver
+exactly as JAX's bf16-grade default does on the TPU. ``highp`` scopes true
+float32 matmuls over a block or a function and restores the caller's
+settings on exit.
+
+    with highp():
+        ...
+
+    @highp()
+    def solve(...):
+        ...
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+
+@contextlib.contextmanager
+def highp():
+    """Context manager (and, called, a decorator) for full-f32 matmuls."""
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32
+    saved_prec = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved_prec)
+        torch.backends.cuda.matmul.allow_tf32 = saved_tf32

@@ -1,0 +1,85 @@
+"""The port stands alone: no JAX at run time, no silent CPU fallback, and a
+faithful conversion of the reference's graph container."""
+import ast
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from omniswarm_torch.convert import dense_graph_to_torch, warm_state_to_torch
+from omniswarm_torch.solver.dense import DenseGraph
+from omniswarm_tpu import sim
+from omniswarm_tpu.solver import dense as jdense
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "omniswarm_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "omniswarm_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for want in ("chip_smoke.py", "omniswarm_torch/entry.py",
+                 "omniswarm_torch/solver/fused_level.py",
+                 "omniswarm_torch/kernels.py"):
+        assert want in names
+    assert (ROOT / "omniswarm_torch/csrc/fused_level.cu").exists()
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""]
+        else:
+            continue
+        for mod in mods:
+            assert mod.split(".")[0] not in FORBIDDEN, (path, mod)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from omniswarm_torch.entry import entry
+    from omniswarm_torch.solver.dense import lm_solve_bt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+    data = sim.generate(sim.SimParams(num_drones=2, num_frames=4, seed=0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_solve_bt(jdense.dense_graph_from_sim(data), data.vio)
+
+
+def test_dense_graph_to_torch_roundtrip():
+    data = sim.generate(sim.SimParams(num_drones=3, num_frames=12, seed=4))
+    jg = jax.device_put(jdense.dense_graph_from_sim(
+        data, ant_pos=np.ones((3, 3), np.float32)))
+    tg = dense_graph_to_torch(jg, "cpu")
+    assert isinstance(tg, DenseGraph)
+    for name in DenseGraph._fields:
+        a, b = getattr(jg, name), getattr(tg, name)
+        pairs = zip(a, b) if name == "loops" else [(a, b)]
+        for x, y in pairs:
+            assert isinstance(y, torch.Tensor), name
+            np.testing.assert_array_equal(y.numpy(), np.asarray(x),
+                                          err_msg=name)
+    assert tg.loops.frame_a.dtype == torch.int64
+
+
+def test_warm_state_to_torch_nested():
+    warm = ((jnp.ones((4, 8, 8)), jnp.zeros((2, 8, 8))), jnp.eye(16),
+            np.full((12, 12), 2.0))
+    got = warm_state_to_torch(warm, "cpu")
+    assert len(got) == 3 and len(got[0]) == 2
+    assert got[1].dtype == torch.float32
+    np.testing.assert_array_equal(got[2].numpy(), warm[2])
