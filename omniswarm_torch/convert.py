@@ -1,4 +1,4 @@
-"""Carry problem data across from the JAX package's containers.
+"""Carry problem data and weights across from the JAX package's containers.
 
 The solve has no learned parameters: its "weights" are the factor graph and,
 for a warm restart, the Newton-Schulz warm state. ``dense_graph_to_torch``
@@ -6,8 +6,22 @@ reads any DenseGraph-shaped object field by field (numpy, JAX or torch
 leaves; JAX leaves go through ``numpy.asarray``) and builds the port's
 ``DenseGraph`` on a device. The JAX package is never imported: the
 conversion works on duck-typed fields.
+
+The front-end's networks do have weights. ``superpoint_params_from_flax``
+and ``netvlad_params_from_flax`` take a flat Flax-layout dict of numpy
+arrays (``/``-joined paths, as the reference's ``.npz`` checkpoints store
+them) and return the ``state_dict`` of the port's extractor:
+
+- conv kernels HWIO -> OIHW; a depthwise kernel (3, 3, 1, C) becomes
+  (C, 1, 3, 3) for ``groups=C`` by the same transpose;
+- Dense kernels (in, out) -> Linear weights (out, in);
+- GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
+- every array to f32 (the checkpoints are f16), as the reference's
+  ``jnp.asarray(raw[k], jnp.float32)`` does.
 """
 from __future__ import annotations
+
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -48,3 +62,41 @@ def warm_state_to_torch(warm, device):
     if isinstance(warm, (tuple, list)):
         return tuple(warm_state_to_torch(w, device) for w in warm)
     return _tensor(warm, torch.device(device))
+
+
+def _flax_leaf(path: str, value: np.ndarray):
+    """(torch key, tensor) of one Flax leaf at ``params/a/b/leaf``."""
+    parts = path.split("/")
+    if parts[0] == "params":
+        parts = parts[1:]
+    *mods, leaf = parts
+    v = np.array(value, np.float32)         # a copy: JAX leaves are read-only
+    if leaf == "kernel":
+        leaf = "weight"
+        v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
+    elif leaf == "scale":
+        leaf = "weight"
+    return ".".join(mods + [leaf]), torch.from_numpy(np.ascontiguousarray(v))
+
+
+def superpoint_params_from_flax(flat: Mapping[str, np.ndarray]
+                                ) -> Dict[str, torch.Tensor]:
+    """``SuperPointExtractor`` state_dict from flat Flax SuperPoint params
+    (``params/conv1a/kernel`` ...) plus ``pca_components`` and
+    ``pca_mean``."""
+    out = {}
+    for path, value in flat.items():
+        if path in ("pca_components", "pca_mean"):
+            out[path] = torch.from_numpy(np.array(value, np.float32))
+        else:
+            key, t = _flax_leaf(path, value)
+            out[f"net.{key}"] = t
+    return out
+
+
+def netvlad_params_from_flax(flat: Mapping[str, np.ndarray]
+                             ) -> Dict[str, torch.Tensor]:
+    """``GlobalDescriptorExtractor`` state_dict from flat Flax MobileNetVLAD
+    params (``params/encoder/stem/kernel`` ...)."""
+    return dict(("model." + k, t) for k, t in
+                (_flax_leaf(p, v) for p, v in flat.items()))

@@ -29,10 +29,12 @@ import torch
 
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-SOURCES = {"fused_level": PKG_DIR / "csrc" / "fused_level.cu"}
+SOURCES = {name: PKG_DIR / "csrc" / f"{name}.cu"
+           for name in ("fused_level", "grid_nms", "retrieval_top1")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 FUSED_LEVEL_MAX_M = 80       # the reference never packs wider (dense.py:1101)
+GRID_NMS_MAX_RADIUS = 16     # the kernel's shared strip is sized for it
 
 build_logs: Dict[str, str] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -104,21 +106,32 @@ def _load(name: str) -> ctypes.CDLL:
     build([name])
     with _lock:
         lib = ctypes.CDLL(str(library_path(name)))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         if name == "fused_level":
             fn = lib.fused_level_launch
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_float, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ctypes.c_float, ptr]
+            fn.restype = i32
+        elif name == "grid_nms":
+            fn = lib.grid_nms_launch
+            fn.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
+            fn.restype = i32
+        elif name == "retrieval_top1":
+            fn = lib.retrieval_top1_launch
+            fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr,
+                           ptr]
+            fn.restype = i32
+            lib.retrieval_top1_blocks.argtypes = [i32]
+            lib.retrieval_top1_blocks.restype = i32
         _libs[name] = lib
     return lib
 
 
-def _check_blocks(name: str, x: torch.Tensor, shape) -> None:
+def _check_blocks(name: str, x: torch.Tensor, shape,
+                  dtype: torch.dtype = torch.float32) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {x.dtype}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if tuple(x.shape) != tuple(shape):
@@ -158,3 +171,68 @@ def fused_level(A: torch.Tensor, Bp: torch.Tensor, X0: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused_level launch failed: CUDA error {err}")
     return out.unbind(0)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def grid_nms(heat: torch.Tensor, nms_dist: int) -> torch.Tensor:
+    """Launch csrc/grid_nms.cu on a (B, H, W) f32 batch of heat maps.
+
+    Returns ``heat`` where it is the maximum of its (2 nms_dist + 1)^2
+    window (cells outside the map count as -inf), else 0; (B, H, W) f32.
+    """
+    if heat.dim() != 3:
+        raise ValueError(f"heat must be (B, H, W), got {tuple(heat.shape)}")
+    if not 0 <= nms_dist <= GRID_NMS_MAX_RADIUS:
+        raise ValueError(f"nms_dist {nms_dist} outside the kernel's "
+                         f"0..{GRID_NMS_MAX_RADIUS}")
+    B, H, W = heat.shape
+    if B < 1 or B > 65535 or H < 1 or W < 1:
+        raise ValueError(f"heat batch shape {tuple(heat.shape)} not supported")
+    _check_blocks("heat", heat, (B, H, W))
+    lib = _load("grid_nms")
+    out = torch.empty_like(heat)
+    with torch.cuda.device(heat.device):
+        err = lib.grid_nms_launch(heat.data_ptr(), out.data_ptr(), B, H, W,
+                                  int(nms_dist), _stream(heat.device))
+    if err != 0:
+        raise RuntimeError(f"grid_nms launch failed: CUDA error {err}")
+    return out
+
+
+def retrieval_top1(db: torch.Tensor, query: torch.Tensor,
+                   mask: torch.Tensor):
+    """Launch csrc/retrieval_top1.cu: Q masked top-1 searches of one DB.
+
+    db (N, D) f32, query (Q, D) f32, mask (Q, N) bool, contiguous on one
+    CUDA device. Returns (best_idx (Q,) int64, best_sim (Q,) f32): the
+    lowest index among the maxima of ``query @ db.T`` with masked entries
+    at -inf; (0, -inf) for a query whose every entry is masked.
+    """
+    if db.dim() != 2 or query.dim() != 2 or mask.dim() != 2:
+        raise ValueError("db, query and mask must be 2-D")
+    N, D = db.shape
+    Q = query.shape[0]
+    if N < 1 or D < 1 or Q < 1 or Q > 65535:
+        raise ValueError(f"retrieval shapes N={N} D={D} Q={Q} not supported")
+    _check_blocks("db", db, (N, D))
+    _check_blocks("query", query, (Q, D))
+    _check_blocks("mask", mask, (Q, N), torch.bool)
+    if not (db.device == query.device == mask.device):
+        raise ValueError("db, query and mask must be on one device")
+    lib = _load("retrieval_top1")
+    nb = lib.retrieval_top1_blocks(N)
+    part_sim = torch.empty((Q, nb), dtype=torch.float32, device=db.device)
+    part_idx = torch.empty((Q, nb), dtype=torch.int32, device=db.device)
+    best_idx = torch.empty((Q,), dtype=torch.int64, device=db.device)
+    best_sim = torch.empty((Q,), dtype=torch.float32, device=db.device)
+    with torch.cuda.device(db.device):
+        err = lib.retrieval_top1_launch(
+            db.data_ptr(), query.data_ptr(), mask.data_ptr(), N, D, Q,
+            part_sim.data_ptr(), part_idx.data_ptr(), best_idx.data_ptr(),
+            best_sim.data_ptr(), _stream(db.device))
+    if err != 0:
+        raise RuntimeError(f"retrieval_top1 launch failed: CUDA error {err}")
+    return best_idx, best_sim

@@ -1,0 +1,141 @@
+"""SuperPoint keypoint detector and descriptor as a ``torch.nn`` module.
+
+Counterpart of ``omniswarm_tpu/models/superpoint.py`` (:32-209): a VGG-style
+shared encoder (64, 64 /2 64, 64 /2 128, 128 /2 128, 128), a 65-channel
+detector head (8 x 8 cell pixels + dustbin) and a 256-d descriptor head,
+in NCHW. ``SuperPointExtractor`` adds the fixed-shape post-processing (NMS
+through K2, top-K, subpixel refinement, bilinear descriptor sampling) and
+the PCA 256 -> 64. Weights come from the reference's bundled Flax checkpoint
+(``omniswarm_tpu/models/weights/*.npz``, read as data with numpy) through
+``convert.superpoint_params_from_flax``.
+
+Every 3x3 convolution here has stride 1, where Flax's ``padding="SAME"``
+is the symmetric ``padding=1``.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from omniswarm_torch.core.device import resolve_device
+from omniswarm_torch.ops.keypoints import (
+    bilinear_sample_descriptors,
+    extract_keypoints,
+)
+
+WEIGHTS_DIR = (Path(__file__).resolve().parents[2] / "omniswarm_tpu"
+               / "models" / "weights")
+DEFAULT_WEIGHTS = WEIGHTS_DIR / "superpoint_photo_v2.npz"
+
+_CONVS = (("conv1a", 1, 64, 3), ("conv1b", 64, 64, 3),
+          ("conv2a", 64, 64, 3), ("conv2b", 64, 64, 3),
+          ("conv3a", 64, 128, 3), ("conv3b", 128, 128, 3),
+          ("conv4a", 128, 128, 3), ("conv4b", 128, 128, 3),
+          ("convPa", 128, 256, 3), ("convPb", 256, 65, 1),
+          ("convDa", 128, 256, 3), ("convDb", 256, 256, 1))
+
+
+def _unit(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x / max(||x||, 1e-8) along ``dim`` (the reference's guard, not
+    F.normalize's 1e-12)."""
+    return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=dim,
+                                                        keepdim=True), 1e-8)
+
+
+class SuperPoint(nn.Module):
+    """images (B, 1, H, W) in [0, 1] -> (heat (B, H, W),
+    desc (B, H/8, W/8, 256)); the descriptor map is returned channels-last,
+    the reference's layout, as a view."""
+
+    def __init__(self):
+        super().__init__()
+        for name, cin, cout, k in _CONVS:
+            self.add_module(name, nn.Conv2d(cin, cout, k, padding=k // 2))
+
+    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+        x = images
+        for a, b in (("conv1a", "conv1b"), ("conv2a", "conv2b"),
+                     ("conv3a", "conv3b")):
+            x = F.relu(getattr(self, a)(x))
+            x = F.relu(getattr(self, b)(x))
+            x = F.max_pool2d(x, 2, 2)
+        x = F.relu(self.conv4a(x))
+        x = F.relu(self.conv4b(x))
+
+        logits = self.convPb(F.relu(self.convPa(x)))          # (B, 65, Hc, Wc)
+        semi = torch.softmax(logits, dim=1)[:, :64]
+        B, _, Hc, Wc = semi.shape
+        # depth-to-space: channel i*8 + j -> pixel (8 hc + i, 8 wc + j)
+        heat = semi.reshape(B, 8, 8, Hc, Wc).permute(0, 3, 1, 4, 2)
+        heat = heat.reshape(B, Hc * 8, Wc * 8)
+
+        desc = self.convDb(F.relu(self.convDa(x)))
+        desc = _unit(desc, dim=1)
+        return heat, desc.permute(0, 2, 3, 1)
+
+
+class SuperPointExtractor(nn.Module):
+    """SuperPoint + fixed-shape post-processing + PCA projection, with
+    the weights and PCA of ``state_dict`` (``convert``'s layout).
+
+    Call with (B, 1, H, W) images in [0, 1]; returns (xy (B, K, 2) f32,
+    scores (B, K), desc (B, K, pca_dim) unit, valid (B, K) bool).
+    """
+
+    def __init__(self, state_dict: Dict[str, torch.Tensor], *,
+                 max_keypoints: int = 200, threshold: float = 0.012,
+                 nms_dist: int = 4, pca_dim: int = 64):
+        super().__init__()
+        self.net = SuperPoint()
+        self.max_keypoints = max_keypoints
+        self.threshold = threshold
+        self.nms_dist = nms_dist
+        self.register_buffer("pca_components", torch.zeros(pca_dim, 256))
+        self.register_buffer("pca_mean", torch.zeros(256))
+        self.load_state_dict(state_dict)
+
+    @torch.no_grad()
+    def forward(self, images: torch.Tensor):
+        with record_function("frontend/superpoint_net"):
+            heat, desc_coarse = self.net(images)
+        with record_function("frontend/keypoints"):
+            xy, scores, valid = extract_keypoints(
+                heat, max_keypoints=self.max_keypoints,
+                threshold=self.threshold, nms_dist=self.nms_dist)
+        with record_function("frontend/descriptors"):
+            desc = _unit(bilinear_sample_descriptors(desc_coarse, xy,
+                                                     cell=8), dim=-1)
+            # PCA 256 -> 64 (reference: USE_PCA,
+            # superpoint_tensorrt.cpp:192-230)
+            desc = _unit((desc - self.pca_mean) @ self.pca_components.T,
+                         dim=-1)
+        return xy, scores, desc, valid
+
+
+def load_flax_npz(path) -> Dict[str, np.ndarray]:
+    """Flat Flax-layout parameters of a checkpoint saved by the reference's
+    ``save_flax_npz``, as f32 numpy arrays keyed by their ``/`` paths;
+    ``__``-prefixed extras (PCA) keep their key without the prefix."""
+    raw = np.load(path)
+    return {(k[2:] if k.startswith("__") else k):
+            np.asarray(raw[k], np.float32) for k in raw.files}
+
+
+def pretrained_extractor(device="cuda", *, path=DEFAULT_WEIGHTS,
+                         **kw) -> SuperPointExtractor:
+    """SuperPointExtractor with the bundled photometric checkpoint (with
+    its fitted PCA), on ``device`` (the GPU unless the CPU is asked for)."""
+    from omniswarm_torch.convert import superpoint_params_from_flax
+
+    dev = resolve_device(device)
+    flat = load_flax_npz(path)
+    kw.setdefault("pca_dim", flat["pca_components"].shape[0])
+    ext = SuperPointExtractor(superpoint_params_from_flax(flat), **kw)
+    return ext.to(dev).eval()

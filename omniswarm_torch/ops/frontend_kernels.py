@@ -1,0 +1,99 @@
+"""The front-end's two hand-written kernels and their plain versions.
+
+Counterpart of ``omniswarm_tpu/ops/pallas_kernels.py``:
+
+- ``grid_nms`` (K2, replaces ``grid_nms_pallas``): window-max non-maximum
+  suppression of a (B, H, W) batch of SuperPoint heat maps;
+  csrc/grid_nms.cu.
+- ``retrieval_top1`` (K3, replaces ``retrieval_top1_pallas``): Q masked
+  top-1 searches of an (N, D) global-descriptor DB; csrc/retrieval_top1.cu.
+
+A CUDA tensor goes to the hand-written kernel (through
+``omniswarm_torch.kernels``) and a CPU tensor to the plain version
+(``grid_nms_ref``, ``retrieval_top1_ref``). Each dispatcher keeps a plain
+integer ``.launches`` count of kernel launches and each plain version a
+``.calls`` count.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def grid_nms_ref(heat: torch.Tensor, nms_dist: int = 4) -> torch.Tensor:
+    """Plain PyTorch NMS of (B, H, W) heat maps, any device.
+
+    A cell survives (keeps its value) iff it is >= every cell of its
+    (2 nms_dist + 1)^2 window; else 0. The window max is taken rows first,
+    then columns, by shifted maxima over a -inf border (no wrap-around), as
+    the TPU kernel does; plateau ties keep every equal cell.
+    """
+    grid_nms_ref.calls += 1
+    r = nms_dist
+    H, W = heat.shape[-2:]
+    padded = F.pad(heat, (r, r, r, r), value=float("-inf"))
+    rowmax = padded[..., r:r + H, :]
+    for d in range(1, r + 1):
+        rowmax = torch.maximum(rowmax, padded[..., r - d:r - d + H, :])
+        rowmax = torch.maximum(rowmax, padded[..., r + d:r + d + H, :])
+    winmax = rowmax[..., r:r + W]
+    for d in range(1, r + 1):
+        winmax = torch.maximum(winmax, rowmax[..., r - d:r - d + W])
+        winmax = torch.maximum(winmax, rowmax[..., r + d:r + d + W])
+    return torch.where(heat >= winmax, heat, 0.0)
+
+
+grid_nms_ref.calls = 0
+
+
+def grid_nms(heat: torch.Tensor, nms_dist: int = 4) -> torch.Tensor:
+    """K2: NMS of (B, H, W) f32 heat maps; the CUDA kernel for CUDA tensors,
+    else the plain version. Same contract as ``grid_nms_ref``."""
+    if heat.device.type == "cpu":
+        return grid_nms_ref(heat, nms_dist)
+    from omniswarm_torch import kernels
+
+    out = kernels.grid_nms(heat, nms_dist)         # raises off-GPU
+    grid_nms.launches += 1
+    return out
+
+
+grid_nms.launches = 0
+
+
+def retrieval_top1_ref(db: torch.Tensor, query: torch.Tensor,
+                       mask: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain masked top-1 retrieval, any device.
+
+    db (N, D), query (Q, D), mask (Q, N) bool. Returns (best_idx (Q,)
+    int64, best_sim (Q,) f32): the argmax of ``query @ db.T`` with masked
+    entries at -inf, the lowest index among equal maxima; (0, -inf) when a
+    query's every entry is masked.
+    """
+    retrieval_top1_ref.calls += 1
+    sims = torch.where(mask, query @ db.T, float("-inf"))
+    best = torch.argmax(sims, dim=1)
+    return best, torch.gather(sims, 1, best[:, None])[:, 0]
+
+
+retrieval_top1_ref.calls = 0
+
+
+def retrieval_top1(db: torch.Tensor, query: torch.Tensor,
+                   mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: masked top-1 retrieval; the CUDA kernel for CUDA tensors (one
+    launch for all Q queries), else the plain version. Same contract as
+    ``retrieval_top1_ref``."""
+    if db.device.type == "cpu":
+        return retrieval_top1_ref(db, query, mask)
+    from omniswarm_torch import kernels
+
+    out = kernels.retrieval_top1(db, query, mask)  # raises off-GPU
+    retrieval_top1.launches += 1
+    return out
+
+
+retrieval_top1.launches = 0

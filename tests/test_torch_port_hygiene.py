@@ -28,9 +28,12 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for want in ("chip_smoke.py", "omniswarm_torch/entry.py",
                  "omniswarm_torch/solver/fused_level.py",
-                 "omniswarm_torch/kernels.py"):
+                 "omniswarm_torch/kernels.py",
+                 "omniswarm_torch/frontend_entry.py",
+                 "omniswarm_torch/ops/frontend_kernels.py"):
         assert want in names
-    assert (ROOT / "omniswarm_torch/csrc/fused_level.cu").exists()
+    for cu in ("fused_level", "grid_nms", "retrieval_top1"):
+        assert (ROOT / f"omniswarm_torch/csrc/{cu}.cu").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -58,6 +61,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     data = sim.generate(sim.SimParams(num_drones=2, num_frames=4, seed=0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_solve_bt(jdense.dense_graph_from_sim(data), data.vio)
+
+
+def test_frontend_entry_raises_without_cuda(monkeypatch):
+    from omniswarm_torch.frontend_entry import frontend_entry
+    from omniswarm_torch.models.netvlad import pretrained_global_extractor
+    from omniswarm_torch.models.superpoint import pretrained_extractor
+    from omniswarm_torch.ops.placedb import make_placedb
+    from omniswarm_torch.swarm.loop_cam import LoopCam
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (frontend_entry, LoopCam, pretrained_extractor,
+                  pretrained_global_extractor, lambda: make_placedb(8, 4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
 
 
 def test_dense_graph_to_torch_roundtrip():
