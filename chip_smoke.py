@@ -27,10 +27,12 @@ non-zero without printing a result.
    CUDA-event medians of the kernel, the plain version and the library
    call (max_pool2d + where), beside the bytes bound.
 6. K3 phase: the top-1 retrieval kernel against its plain version at
-   N = D = 4096 and at N = 512, D = 4096, Q = 1 and 5, on a partly masked
-   DB with a planted tie and an all-masked query: equal indices,
-   similarities within 1e-5 relative. The same timings (library: argmax
-   of the masked matmul).
+   N = D = 4096 and at N = 512, D = 4096, Q = 1 and 5, and at the edge
+   shapes N = 1000, D = 130, Q = 9 and N = D = 4096, Q = 8, on a partly
+   masked DB with planted ties (across CTAs and inside one row tile) and
+   an all-masked query: equal indices, the lower row of each tie,
+   (0, -inf) for the masked query, similarities within 1e-5 relative. The
+   same timings (library: argmax of the masked matmul).
 7. Front-end path: omniswarm_torch.frontend_entry.frontend_entry() at
    full size (5 drones x 15 keyframe steps of 40 views at 400 x 208). No
    plain version may run; K2 and K3 launch 15 times each. Held against the
@@ -60,6 +62,14 @@ MAIN_PATHS = (
     (1024, 6, 2330.99, 0.1),
 )
 K3_RTOL = 1e-5
+K3_SHAPES = (
+    # N, D, Q: the path's query_batch (5) and query (1) on the configured
+    # 4096-slot DB and on the demo's 512; then edge shapes of the tiling:
+    # ragged N and 4-byte loads (D % 4 != 0) over two query groups of 8,
+    # and one full group of 8
+    (4096, 4096, 5), (4096, 4096, 1), (512, 4096, 5), (512, 4096, 1),
+    (1000, 130, 9), (4096, 4096, 8),
+)
 # The front-end path's anchors, from the JAX package on the CPU
 # (PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_frontend_entry.py
 # --anchors): per-keyframe checksums (frontend_entry.keyframe_checksums),
@@ -383,19 +393,25 @@ def k2_phase():
 
 def k3_inputs(rng, N: int, D: int, Q: int):
     """Unit DB rows, noisy queries of random rows, a mask with ~30% of the
-    entries off, a planted tie (rows N//2 and N-1 equal, query 0 on it)
-    and, for Q > 1, an all-masked last query."""
+    entries off and, for Q > 1, an all-masked last query. Planted ties
+    (equal rows, a query on them; the lower row must win), as
+    (query, winning row) pairs: rows N//2 and N-1 (query 0); for Q >= 4
+    also rows 3 and 4, which K3 gives to different CTAs (4-row tiles 0 and
+    1), and rows 8 and 9, inside one tile (queries 1 and 2)."""
     db = rng.normal(size=(N, D)).astype(np.float32)
     db /= np.linalg.norm(db, axis=1, keepdims=True)
-    db[N - 1] = db[N // 2]
+    pairs = [(N // 2, N - 1)] + ([(3, 4), (8, 9)] if Q >= 4 else [])
+    for a, b in pairs:
+        db[b] = db[a]
     q = db[rng.integers(0, N, size=Q)] + rng.normal(0, 0.05, size=(Q, D))
-    q[0] = db[N // 2]
+    for j, (a, _) in enumerate(pairs):
+        q[j] = db[a]
     q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
     mask = rng.uniform(size=(Q, N)) > 0.3
-    mask[:, [N // 2, N - 1]] = True
+    mask[:, [row for pair in pairs for row in pair]] = True
     if Q > 1:
         mask[-1] = False
-    return db, q, mask
+    return db, q, mask, [(j, a) for j, (a, _) in enumerate(pairs)]
 
 
 def k3_phase():
@@ -408,17 +424,19 @@ def k3_phase():
     rng = np.random.default_rng(2)
     rows = []
     with highp():
-        for N, D, Q in ((4096, 4096, 5), (4096, 4096, 1), (512, 4096, 5),
-                        (512, 4096, 1)):
-            db, q, mask = (torch.from_numpy(v).cuda()
-                           for v in k3_inputs(rng, N, D, Q))
+        for N, D, Q in K3_SHAPES:
+            *arrays, ties = k3_inputs(rng, N, D, Q)
+            db, q, mask = (torch.from_numpy(v).cuda() for v in arrays)
             idx, sim = kernels.retrieval_top1(db, q, mask)
             ridx, rsim = retrieval_top1_ref(db, q, mask)
             torch.cuda.synchronize()
             check(torch.equal(idx, ridx),
-                  f"K3 indices differ at N={N} Q={Q}: {idx.tolist()} vs "
-                  f"{ridx.tolist()}")
-            check(int(idx[0]) == N // 2, f"K3 tie broke to {int(idx[0])}")
+                  f"K3 indices differ at N={N} D={D} Q={Q}: "
+                  f"{idx.tolist()} vs {ridx.tolist()}")
+            for j, want in ties:
+                check(int(idx[j]) == want,
+                      f"K3 tie of query {j} broke to {int(idx[j])}, not "
+                      f"{want}, at N={N} D={D} Q={Q}")
             fin = torch.isfinite(rsim)
             check(torch.equal(fin, torch.isfinite(sim)),
                   f"K3 masking differs at N={N} Q={Q}")

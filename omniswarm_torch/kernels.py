@@ -6,8 +6,9 @@ shared library with a plain C interface, at first use, under
 source and flags, so an edited source is rebuilt). Libraries are loaded with
 ``ctypes``; every pointer and the stream are passed as ``c_void_p``. Kernels
 launch on PyTorch's current stream and allocate nothing: the wrappers here
-check their inputs, allocate the outputs with ``torch.empty`` and raise when
-the C entry returns a CUDA error.
+check their inputs, allocate the outputs and scratch with ``torch.empty``
+(K3 also keeps one zeroed ticket counter per stream) and raise when the C
+entry returns a CUDA error.
 
     python -c "from omniswarm_torch import kernels; print(kernels.build())"
 
@@ -23,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -38,6 +39,7 @@ GRID_NMS_MAX_RADIUS = 16     # the kernel's shared strip is sized for it
 
 build_logs: Dict[str, str] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
+_tickets: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
 _lock = threading.Lock()
 
 
@@ -177,6 +179,18 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _retrieval_ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """The u32 ticket counter of csrc/retrieval_top1.cu for one stream of
+    one device: zeroed once here, left at 0 by every launch. Launches on
+    one stream run in order, so they never share it concurrently."""
+    key = (device.index, stream)
+    ticket = _tickets.get(key)
+    if ticket is None:
+        ticket = torch.zeros((1,), dtype=torch.int32, device=device)
+        _tickets[key] = ticket
+    return ticket
+
+
 def grid_nms(heat: torch.Tensor, nms_dist: int) -> torch.Tensor:
     """Launch csrc/grid_nms.cu on a (B, H, W) f32 batch of heat maps.
 
@@ -209,7 +223,8 @@ def retrieval_top1(db: torch.Tensor, query: torch.Tensor,
     db (N, D) f32, query (Q, D) f32, mask (Q, N) bool, contiguous on one
     CUDA device. Returns (best_idx (Q,) int64, best_sim (Q,) f32): the
     lowest index among the maxima of ``query @ db.T`` with masked entries
-    at -inf; (0, -inf) for a query whose every entry is masked.
+    at -inf; (0, -inf) for a query whose every entry is masked. Both are
+    views of the one allocation that also holds the kernel's scratch.
     """
     if db.dim() != 2 or query.dim() != 2 or mask.dim() != 2:
         raise ValueError("db, query and mask must be 2-D")
@@ -223,16 +238,21 @@ def retrieval_top1(db: torch.Tensor, query: torch.Tensor,
     if not (db.device == query.device == mask.device):
         raise ValueError("db, query and mask must be on one device")
     lib = _load("retrieval_top1")
-    nb = lib.retrieval_top1_blocks(N)
-    part_sim = torch.empty((Q, nb), dtype=torch.float32, device=db.device)
-    part_idx = torch.empty((Q, nb), dtype=torch.int32, device=db.device)
-    best_idx = torch.empty((Q,), dtype=torch.int64, device=db.device)
-    best_sim = torch.empty((Q,), dtype=torch.float32, device=db.device)
     with torch.cuda.device(db.device):
+        nb = lib.retrieval_top1_blocks(N)
+        stream = _stream(db.device)
+        ticket = _retrieval_ticket(db.device, stream)
+        # one allocation: best_idx (Q i64), best_sim (Q f32 in ceil(Q/2)
+        # i64) and the CTAs' (sim, index) pairs (Q * nb, 8 bytes each)
+        n_sim = (Q + 1) // 2
+        buf = torch.empty((Q + n_sim + Q * nb,), dtype=torch.int64,
+                          device=db.device)
+        best_idx = buf[:Q]
+        best_sim = buf[Q:Q + n_sim].view(torch.float32)[:Q]
         err = lib.retrieval_top1_launch(
             db.data_ptr(), query.data_ptr(), mask.data_ptr(), N, D, Q,
-            part_sim.data_ptr(), part_idx.data_ptr(), best_idx.data_ptr(),
-            best_sim.data_ptr(), _stream(db.device))
+            buf[Q + n_sim:].data_ptr(), ticket.data_ptr(),
+            best_idx.data_ptr(), best_sim.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"retrieval_top1 launch failed: CUDA error {err}")
     return best_idx, best_sim

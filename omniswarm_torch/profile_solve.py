@@ -153,8 +153,7 @@ def profile_frontend(top: int = 15) -> dict:
                     "outside any stage")
         stages[name] += end - start
     named = {"K2 grid_nms_kernel": ("grid_nms_kernel",),
-             "K3 retrieval kernels": ("retrieval_partial_kernel",
-                                      "retrieval_reduce_kernel"),
+             "K3 retrieval_kernel": ("retrieval_kernel",),
              "sort kernels (top-K)": ("sort", "Sort")}
     return {
         "card": _card(), "path": "frontend", "steps": n,

@@ -74,7 +74,7 @@ def _pallas_top1(db, q, mask):
 
 @pytest.mark.parametrize("N,D,case", [
     (256, 128, "full"), (512, 128, "partial"), (512, 64, "tie"),
-    (256, 32, "all_masked")])
+    (256, 32, "all_masked"), (1000, 130, "ragged"), (1100, 130, "tie_far")])
 def test_plain_retrieval_matches_pallas(N, D, case):
     rng = np.random.default_rng(N + D)
     db = _db(rng, N, D)
@@ -92,6 +92,12 @@ def test_plain_retrieval_matches_pallas(N, D, case):
         q[2] = db[10]                             # within a chunk
     elif case == "all_masked":
         mask[:] = False
+    elif case == "ragged":                        # a hit in the last,
+        q[2] = db[N - 1]                          # partial 256-row chunk
+        mask[:, 1::4] = False
+    elif case == "tie_far":
+        db[1050] = db[50]                         # equal rows 1000 apart,
+        q[1] = db[50]                             # first and last chunk
     idx, sim = fk.retrieval_top1_ref(torch.from_numpy(db),
                                      torch.from_numpy(q),
                                      torch.from_numpy(mask))
@@ -104,6 +110,10 @@ def test_plain_retrieval_matches_pallas(N, D, case):
             assert float(sim[j]) == s == -np.inf
     if case == "tie":
         assert int(idx[1]) == 100 and int(idx[2]) == 10
+    if case == "ragged":
+        assert int(idx[2]) == N - 1
+    if case == "tie_far":
+        assert int(idx[1]) == 50
     if case == "all_masked":
         assert (idx == 0).all() and torch.isneginf(sim).all()
 
@@ -132,6 +142,20 @@ def test_kernel_wrappers_reject_cpu_tensors():
                                torch.ones((1, 4), dtype=torch.bool))
 
 
+@pytest.mark.parametrize("db_shape,q_shape,mask_shape,match", [
+    ((4, 8), (8,), (1, 4), "2-D"),
+    ((0, 8), (1, 8), (1, 0), "not supported"),
+    ((4, 8), (0, 8), (0, 4), "not supported"),
+    ((4, 8), (65536, 8), (65536, 4), "not supported")])
+def test_retrieval_wrapper_rejects_bad_shapes(db_shape, q_shape, mask_shape,
+                                              match):
+    from omniswarm_torch import kernels
+
+    with pytest.raises(ValueError, match=match):
+        kernels.retrieval_top1(torch.zeros(db_shape), torch.zeros(q_shape),
+                               torch.ones(mask_shape, dtype=torch.bool))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -155,23 +179,34 @@ def test_nms_kernel_bit_exact_on_card(cuda_device, shape, r, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,D,Q", [(4096, 4096, 5), (512, 4096, 1),
-                                   (1000, 130, 9), (4096, 4096, 1)])
-def test_retrieval_kernel_matches_plain_on_card(cuda_device, N, D, Q):
+@pytest.mark.parametrize("N,D,Q,aligned", [
+    (4096, 4096, 5, True), (512, 4096, 1, True), (1000, 130, 9, True),
+    (4096, 4096, 1, True), (4096, 4096, 8, True), (512, 4096, 5, True),
+    (512, 4096, 5, False), (37, 64, 17, False)])
+def test_retrieval_kernel_matches_plain_on_card(cuda_device, N, D, Q,
+                                                aligned):
     from omniswarm_torch.core.precision import highp
 
     rng = np.random.default_rng(N + Q)
     db = _db(rng, N, D)
-    db[N - 1] = db[N // 2]                        # planted tie
+    # planted ties, (query, lower row): rows N//2 and N-1; for Q >= 4 rows
+    # 3 and 4 (row tiles 0 and 1 of the kernel, two CTAs) and rows 8 and 9
+    # (one tile)
+    pairs = [(N // 2, N - 1)] + ([(3, 4), (8, 9)] if Q >= 4 else [])
+    for a, b in pairs:
+        db[b] = db[a]
     q = db[rng.integers(0, N, size=Q)] + rng.normal(0, 0.05, size=(Q, D))
-    q[0] = db[N // 2]
+    for j, (a, _) in enumerate(pairs):
+        q[j] = db[a]
     q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
     mask = rng.uniform(size=(Q, N)) > 0.3
-    mask[:, N // 2] = True
-    mask[:, N - 1] = True
+    mask[:, [row for pair in pairs for row in pair]] = True
     if Q > 1:
         mask[-1] = False                          # one all-masked query
     args = [torch.from_numpy(v).to(cuda_device) for v in (db, q, mask)]
+    if not aligned:                               # a query 4 bytes off 16
+        qa = torch.empty(Q * D + 1, device=cuda_device)[1:].view(Q, D)
+        args[1] = qa.copy_(args[1])
     launches = fk.retrieval_top1.launches
     with highp():
         idx, sim = fk.retrieval_top1(*args)
@@ -179,5 +214,8 @@ def test_retrieval_kernel_matches_plain_on_card(cuda_device, N, D, Q):
     torch.cuda.synchronize()
     assert fk.retrieval_top1.launches == launches + 1
     assert torch.equal(idx, ridx)
-    assert int(idx[0]) == N // 2
+    for j, (a, _) in enumerate(pairs):
+        assert int(idx[j]) == a
+    if Q > 1:
+        assert int(idx[-1]) == 0 and bool(torch.isneginf(sim[-1]))
     torch.testing.assert_close(sim, rsim, rtol=1e-5, atol=0)
