@@ -9,16 +9,24 @@ non-zero without printing a result.
 
 1. Prints the card's name and power limit (nvidia-smi) and builds every
    kernel of the port from csrc/ (one nvcc per source, started together).
-2. Kernel phase: the fused cyclic-reduction level kernel against its plain
-   PyTorch version on the card, at m=40 (t=32, the F=100 solve) and m=80
-   (t=128, the F=1024 solve), on the warm branch and on the guard-fallback
-   branch; rtol = atol = 2e-4 on all 7 outputs; CUDA-event medians of the
-   kernel and of the plain version, beside the least time the card could
-   take (bytes over 3.35 TB/s, FLOPs over 67 TFLOP/s FP32).
+2. K1 phase: the fused cyclic-reduction level kernel against its plain
+   PyTorch version on the card (rtol = atol = 2e-4 on all 7 outputs) at
+   every level shape the solves launch (m=40 with t=32, 16, 8, 4 at F=100;
+   m=80 with t=128, 64, 32, 16, 8, 4 at F=1024) and at odd widths and single
+   pairs, each on the warm, guard-fallback and NaN-start branches. Timed:
+   the warm branch at every level shape, the fallback branch at (40, 32),
+   (80, 128) and (80, 4) and the NaN start at (80, 4). Each timed row gives
+   the CTAs per pair (cluster size), the kernel's CUDA-event median and the
+   least time the card could take (bytes over 3.35 TB/s, FLOPs over
+   67 TFLOP/s FP32); the warm and fallback rows at (40, 32) and (80, 128)
+   also time the wrapper and the plain version.
 3. Main path: omniswarm_torch.entry.entry() at F=100, D=5, seed 0,
    20 LM iterations. Checks a finite cost below the initial one, within 1%
-   of the reference's 177.25, relative ATE < 0.08, and 4 kernel launches per
-   iteration; the same solve with fused=False must agree within 1e-3.
+   of the reference's 177.25, relative ATE < 0.08, 4 kernel launches per
+   iteration at the level shapes above (recorded in the run); the same
+   solve with fused=False must agree within 1e-3. Then K1's kernel ms per
+   LM iteration: the K1 phase's time of each shape the run launched, times
+   its launches, beside the summed bound.
 4. The same at F=1024 (pack 4, m=80, 6 launches per iteration), against
    the reference's 2330.99 and relative ATE < 0.1.
 5. K2 phase: the grid-NMS kernel against its plain version at
@@ -44,18 +52,22 @@ non-zero without printing a result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-RTOL = ATOL = 2e-4
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-FP32_FLOPS_PER_S = 67e12        # H100 SXM FP32 outside the tensor cores
+K1_FULL_ROWS = ((40, 32, "warm"), (40, 32, "fallback"), (80, 128, "warm"),
+                (80, 128, "fallback"))
+K1_EXTRA_ROWS = ((80, 4, "fallback"), (80, 4, "nan"))
+K1_BRANCHES = ("warm", "fallback", "nan")
+# (m, t) checked but not timed: widths other than 40 and 80 (the run-time-m
+# instantiation, ragged and empty panels) and one pair at the extremes
+K1_ODD_SHAPES = ((12, 2), (48, 8), (60, 3), (7, 5), (1, 1), (40, 1), (80, 1))
 MAIN_PATHS = (
     # F, launches per LM iteration, reference cost, relative-ATE bar
     (100, 4, 177.25, 0.08),
@@ -186,116 +198,101 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def time_ms(fn, reps: int = 21, calls: int = 20, warmup: int = 3) -> float:
-    """Device ms per call of ``fn``: median over ``reps`` CUDA-event windows
-    of ``calls`` back-to-back calls. Each window is queued behind a GPU
-    sleep (~50 ms) long enough for a slow host to enqueue all its launches,
-    so the host's launch latency does not open gaps between calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
-def bound(nbytes: float, ops: float):
-    """(least ms, basis) for moving ``nbytes`` and doing ``ops`` FP32
-    operations on the card."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def level_bound_ms(m: int, t: int):
-    """Least time for one level: 13 (m, m) f32 blocks moved and 18 m^3
-    FLOPs per pair (9 block products)."""
-    return bound(13 * m * m * 4 * t, 18 * m ** 3 * t)
-
-
-def random_level(rng, Fl: int, m: int, branch: str):
-    """SPD diagonal blocks, small couplings and a warm start (``warm``: a
-    perturbed true inverse; ``fallback``: 100*ones, which trips the guard)."""
-    X = rng.normal(size=(Fl, m, m))
-    A = X @ X.transpose(0, 2, 1) + 3.0 * np.eye(m)
-    B = 0.25 * rng.normal(size=(Fl - 1, m, m))
-    if branch == "warm":
-        X0 = np.linalg.inv(A[1::2]) * (1 + 1e-3)
-    else:
-        X0 = 100.0 * np.ones((Fl // 2, m, m))
-    return [np.ascontiguousarray(v, np.float32) for v in (A, B, X0)]
-
-
 def kernel_phase():
     import torch
 
     from omniswarm_torch import kernels
+    from omniswarm_torch.benchutil import (SOLVE_LEVELS, check_level,
+                                           level_bound_ms, random_level,
+                                           time_ms)
     from omniswarm_torch.core.precision import highp
     from omniswarm_torch.solver.fused_level import (
         fused_reduction_level, fused_reduction_level_ref)
 
-    names = ("Ainv", "B_left", "B_right", "W_l", "W_r", "A_new", "B_new")
     rng = np.random.default_rng(0)
-    rows = []
+    shapes = [(m, t) for _, m, ts in SOLVE_LEVELS for t in ts]
+    timed = [(m, t, "warm") for m, t in shapes] + [
+        r for r in K1_FULL_ROWS + K1_EXTRA_ROWS if r[2] != "warm"]
+    rows, odd = [], []
     with highp():
-        for m, t in ((40, 32), (80, 128)):
-            for branch in ("warm", "fallback"):
+        for m, t in shapes + list(K1_ODD_SHAPES):
+            for branch in K1_BRANCHES:
                 A, B, X0 = (torch.from_numpy(v).cuda()
                             for v in random_level(rng, 2 * t, m, branch))
-                got = fused_reduction_level(A, B, X0)
-                ref = fused_reduction_level_ref(A, B, X0)
-                torch.cuda.synchronize()
-                err = 0.0
-                for name, g, r in zip(names, got, ref):
-                    check(g.shape == r.shape, f"{name} shape {g.shape}")
-                    check(bool(torch.isfinite(g).all()), f"{name} not finite")
-                    excess = (g - r).abs() - (ATOL + RTOL * r.abs())
-                    check(float(excess.max()) <= 0.0,
-                          f"kernel {name} disagrees at m={m} t={t} {branch}: "
-                          f"max |diff| {float((g - r).abs().max()):.3e}")
-                    err = max(err, float((g - r).abs().max()))
-                bound, by = level_bound_ms(m, t)
-                Bp = torch.cat([B, B.new_zeros((1, m, m))], 0)
-                row = dict(
-                    m=m, t=t, branch=branch, max_abs_err=err,
-                    ms=time_ms(lambda: kernels.fused_level(A, Bp, X0, 0.95)),
-                    wrapper_ms=time_ms(
-                        lambda: fused_reduction_level(A, B, X0)),
-                    plain_ms=time_ms(
-                        lambda: fused_reduction_level_ref(A, B, X0)),
-                    bound_ms=bound, bound_by=by)
+                err = check_level(A, B, X0)
+                cluster = kernels.fused_level_cluster(m, t)
+                if (m, t, branch) not in timed:
+                    odd.append(dict(m=m, t=t, branch=branch, cluster=cluster,
+                                    max_abs_err=err))
+                    continue
+                bound_ms, by = level_bound_ms(m, t)
+                row = dict(m=m, t=t, branch=branch, cluster=cluster,
+                           max_abs_err=err,
+                           ms=time_ms(
+                               lambda: kernels.fused_level(A, B, X0, 0.95)),
+                           bound_ms=bound_ms, bound_by=by)
+                if (m, t, branch) in K1_FULL_ROWS:
+                    row.update(
+                        wrapper_ms=time_ms(
+                            lambda: fused_reduction_level(A, B, X0)),
+                        plain_ms=time_ms(
+                            lambda: fused_reduction_level_ref(A, B, X0)))
                 print("kernel fused_reduction_level", json.dumps(row),
                       flush=True)
                 rows.append(row)
-    return rows
+    print("K1 checked only", json.dumps(odd), flush=True)
+    return rows, odd
+
+
+def k1_per_iteration_of(rows, path):
+    """K1's kernel ms and bound per LM iteration of a main path: the kernel
+    phase's warm-branch time and bound of each level shape the path
+    launched, as often as it launched it, over its iterations."""
+    by_shape = {(r["m"], r["t"]): r for r in rows if r["branch"] == "warm"}
+    n = path["iterations"]
+    out = dict(launches=path["launches"] / n, ms=0.0, bound_ms=0.0)
+    for m, t, count in path["levels"]:
+        check((m, t) in by_shape, f"the path launched K1 at m={m} t={t}, "
+              f"a shape the kernel phase did not time")
+        out["ms"] += count * by_shape[m, t]["ms"] / n
+        out["bound_ms"] += count * by_shape[m, t]["bound_ms"] / n
+    print(f"K1 per LM iteration F={path['F']}: {out['launches']:g} launches "
+          f"{out['ms']:.5f} ms (bound {out['bound_ms']:.5f} ms)", flush=True)
+    return out
 
 
 def main_path_phase(F: int, per_iter: int, ref_cost: float, ate_bar: float):
     import torch
 
+    from omniswarm_torch import kernels
+    from omniswarm_torch.benchutil import SOLVE_LEVELS
     from omniswarm_torch.entry import entry
     from omniswarm_torch.solver.fused_level import (
         fused_reduction_level, fused_reduction_level_ref)
 
     iters = 20
+    # record the (m, t) of every K1 launch of the solve (the wrapper counts)
+    launch, levels = kernels.fused_level, collections.Counter()
+
+    def recording_launch(A, B, X0, guard):
+        levels[A.shape[-1], A.shape[0] // 2] += 1
+        return launch(A, B, X0, guard)
+
+    kernels.fused_level = recording_launch
     fused_reduction_level.launches = 0
     fused_reduction_level_ref.calls = 0
-    res = entry(device="cuda", num_frames=F, num_drones=5, seed=0,
-                max_iterations=iters)
+    try:
+        res = entry(device="cuda", num_frames=F, num_drones=5, seed=0,
+                    max_iterations=iters)
+    finally:
+        kernels.fused_level = launch
     launches = fused_reduction_level.launches
     check(fused_reduction_level_ref.calls == 0,
           "the plain level ran on the card path")
+    want = {(m, t): iters for F_, m, ts in SOLVE_LEVELS if F_ == F
+            for t in ts}
+    check(dict(levels) == want, f"K1 level shapes {dict(levels)}, "
+          f"expected {want}")
     print(f"main path F={F} D=5: loops {res.num_loops} detections "
           f"{res.num_detections} cost {res.initial_cost:.4f} -> "
           f"{res.cost:.4f} (reference {ref_cost}) iterations "
@@ -328,6 +325,7 @@ def main_path_phase(F: int, per_iter: int, ref_cost: float, ate_bar: float):
     return dict(F=F, cost=res.cost, initial_cost=res.initial_cost,
                 iterations=res.iterations, relative_ate=res.relative_ate,
                 launches=launches,
+                levels=[[m, t, n] for (m, t), n in sorted(levels.items())],
                 ms_per_iteration=res.solve_s * 1e3 / res.iterations,
                 unfused_cost=unfused.cost,
                 unfused_ms_per_iteration=(unfused.solve_s * 1e3
@@ -357,6 +355,7 @@ def k2_phase():
     import torch.nn.functional as F
 
     from omniswarm_torch import kernels
+    from omniswarm_torch.benchutil import bound, time_ms
     from omniswarm_torch.ops.frontend_kernels import grid_nms_ref
 
     r = 4
@@ -418,6 +417,7 @@ def k3_phase():
     import torch
 
     from omniswarm_torch import kernels
+    from omniswarm_torch.benchutil import bound, time_ms
     from omniswarm_torch.core.precision import highp
     from omniswarm_torch.ops.frontend_kernels import retrieval_top1_ref
 
@@ -537,17 +537,18 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     t0 = time.perf_counter()
-    rows = kernel_phase()
+    rows, k1_checked = kernel_phase()
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # warm-up: library handles and allocator, outside the counted run
     from omniswarm_torch.entry import entry
     entry(device="cuda", max_iterations=2)
 
-    paths = {}
+    paths, k1_per_iteration = {}, {}
     for F, per_iter, ref_cost, ate_bar in MAIN_PATHS:
         t0 = time.perf_counter()
         paths[F] = main_path_phase(F, per_iter, ref_cost, ate_bar)
+        k1_per_iteration[F] = k1_per_iteration_of(rows, paths[F])
         print(f"main path F={F} phase {time.perf_counter() - t0:.1f} s",
               flush=True)
 
@@ -560,7 +561,8 @@ def main() -> int:
     print(f"front-end path phase {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    main = next(r for r in rows if (r["m"], r["branch"]) == (40, "warm"))
+    main = next(r for r in rows
+                if (r["m"], r["t"], r["branch"]) == (40, 32, "warm"))
     k2_main = next(r for r in k2_rows if r["input"] == "superpoint_heat")
     k3_main = next(r for r in k3_rows if (r["N"], r["Q"]) == (4096, 5))
     kernels_line = {"kernels": [{
@@ -570,7 +572,7 @@ def main() -> int:
         "replaces": "omniswarm_tpu/solver/pallas_level.py:89 "
                     "fused_reduction_level",
         "launches": paths[100]["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + k1_checked),
         "ms": main["ms"],
         "kernel_ms": main["ms"],
         "wrapper_ms": main["wrapper_ms"],
@@ -580,6 +582,8 @@ def main() -> int:
         "library_ms": None,
         "launches_f1024": paths[1024]["launches"],
         "shapes": rows,
+        "checked": k1_checked,
+        "per_iteration": k1_per_iteration,
         "main_paths": list(paths.values()),
     }, {
         "name": "grid_nms",

@@ -113,6 +113,8 @@ def _load(name: str) -> ctypes.CDLL:
             fn = lib.fused_level_launch
             fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ctypes.c_float, ptr]
             fn.restype = i32
+            lib.fused_level_cluster_size.argtypes = [i32, i32]
+            lib.fused_level_cluster_size.restype = i32
         elif name == "grid_nms":
             fn = lib.grid_nms_launch
             fn.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
@@ -141,15 +143,16 @@ def _check_blocks(name: str, x: torch.Tensor, shape,
                          f"expected {tuple(shape)}")
 
 
-def fused_level(A: torch.Tensor, Bp: torch.Tensor, X0: torch.Tensor,
+def fused_level(A: torch.Tensor, B: torch.Tensor, X0: torch.Tensor,
                 guard: float):
     """Launch csrc/fused_level.cu on one cyclic-reduction level.
 
-    A: (2t, m, m); Bp: (2t, m, m), B padded with a zero last block;
-    X0: (t, m, m). All f32, contiguous, on one CUDA device, m <= 80.
-    Returns the kernel's 8 outputs, each (t, m, m): Ainv, W_l, W_r,
-    A_new (before the shifted add), corr_l, B_new (all t rows), B_left,
-    B_right.
+    A: (2t, m, m); B: (2t-1, m, m), unpadded (the kernel takes the last
+    pair's B_right as zero); X0: (t, m, m). All f32, contiguous, on one CUDA
+    device, m <= 80, and starting on 16 bytes when m % 4 == 0 (the kernel
+    loads them 16 bytes at a time). Returns the kernel's 8 outputs, each
+    (t, m, m): Ainv, W_l, W_r, A_new (before the shifted add), corr_l, B_new
+    (all t rows), B_left, B_right.
     """
     Fl, m = A.shape[0], A.shape[-1]
     if Fl < 2 or Fl % 2:
@@ -157,22 +160,41 @@ def fused_level(A: torch.Tensor, Bp: torch.Tensor, X0: torch.Tensor,
     if m > FUSED_LEVEL_MAX_M:
         raise ValueError(f"block width {m} exceeds the kernel's "
                          f"{FUSED_LEVEL_MAX_M}")
+    if tuple(B.shape) != (Fl - 1, m, m):
+        raise ValueError(f"B has shape {tuple(B.shape)}, expected "
+                         f"{(Fl - 1, m, m)}: the kernel takes B unpadded")
+    for name, x in (("A", A), ("B", B), ("X0", X0)):
+        if m % 4 == 0 and x.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on 16 bytes")
     t = Fl // 2
     _check_blocks("A", A, (Fl, m, m))
-    _check_blocks("Bp", Bp, (Fl, m, m))
+    _check_blocks("B", B, (Fl - 1, m, m))
     _check_blocks("X0", X0, (t, m, m))
-    if not (A.device == Bp.device == X0.device):
-        raise ValueError("A, Bp and X0 must be on one device")
+    if not (A.device == B.device == X0.device):
+        raise ValueError("A, B and X0 must be on one device")
     lib = _load("fused_level")
     out = torch.empty((8, t, m, m), dtype=torch.float32, device=A.device)
     with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = lib.fused_level_launch(A.data_ptr(), Bp.data_ptr(),
+        err = lib.fused_level_launch(A.data_ptr(), B.data_ptr(),
                                      X0.data_ptr(), out.data_ptr(), t, m,
-                                     float(guard), stream)
+                                     float(guard), _stream(A.device))
     if err != 0:
         raise RuntimeError(f"fused_level launch failed: CUDA error {err}")
     return out.unbind(0)
+
+
+def fused_level_cluster(m: int, t: int, device=None) -> int:
+    """CTAs per block pair that ``fused_level`` launches for t pairs of
+    (m, m) blocks on ``device`` (the current CUDA device by default): the
+    largest of 8, 4, 2 (at most m) whose t clusters the card holds at once,
+    else 1."""
+    lib = _load("fused_level")
+    with torch.cuda.device(device):
+        size = lib.fused_level_cluster_size(int(m), int(t))
+    if size < 0:
+        raise RuntimeError(f"fused_level cluster size query failed: CUDA "
+                           f"error {-size}")
+    return size
 
 
 def _stream(device: torch.device) -> int:

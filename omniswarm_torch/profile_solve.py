@@ -6,8 +6,9 @@ Builds the seed-0, 5-drone problem, runs one warm-up solve, then traces one
 solve of 20 LM iterations with ``torch.profiler`` (CPU and
 CUDA activities). Prints one JSON line: wall ms per iteration (host clock,
 synchronised), device-busy ms per iteration (the union of kernel intervals
-in the trace), the device's idle share, and the kernels that took the most
-device time with their launch counts. Needs a CUDA card.
+in the trace), the device's idle share, K1's (``fused_level_kernel``,
+every instantiation) device ms and launches per iteration, and the kernels
+that took the most device time with their launch counts. Needs a CUDA card.
 
 ``--frontend`` traces the front-end path of ``frontend_entry`` instead (5
 drones x 15 keyframe steps of 40 views at 400 x 208, rendered before the
@@ -67,8 +68,9 @@ def profile(frames: int, top: int = 12) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     n = res.iterations
-    busy_us, launches, top_kernels, _ = _kernel_table(prof, n, top,
-                                                      "iteration")
+    busy_us, launches, top_kernels, per_kernel = _kernel_table(
+        prof, n, top, "iteration")
+    k1 = [v for name, v in per_kernel.items() if "fused_level_kernel" in name]
     return {
         "card": _card(), "frames": frames, "iterations": n,
         "cost": float(res.cost),
@@ -76,6 +78,8 @@ def profile(frames: int, top: int = 12) -> dict:
         "device_busy_ms_per_iteration": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
         "kernel_launches_per_iteration": launches / n,
+        "k1_fused_level_ms_per_iteration": sum(us for us, _ in k1) / 1e3 / n,
+        "k1_fused_level_launches_per_iteration": sum(c for _, c in k1) / n,
         "top_kernels": top_kernels,
         "note": "the traced solve includes its cold seed factorization",
     }

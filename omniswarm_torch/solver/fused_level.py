@@ -99,7 +99,7 @@ def fused_reduction_level(A: torch.Tensor, B: torch.Tensor,
         return fused_reduction_level_ref(A, B, X0, guard)
     from omniswarm_torch import kernels
 
-    outs = kernels.fused_level(A, _pad_b(A, B), X0, guard)   # raises off-GPU
+    outs = kernels.fused_level(A, B, X0, guard)   # raises off-GPU
     fused_reduction_level.launches += 1
     return _finish(*outs)
 

@@ -3,7 +3,8 @@
 The plain PyTorch version is held against the JAX Pallas kernel (interpret
 mode on CPU) and the XLA level body at rtol = atol = 2e-4, as in
 tests/test_pallas_level.py. The CUDA kernel is held against the plain
-version on a card (marked ``cuda``; skips here).
+version on a card (marked ``cuda``; skips here), at the path's level shapes,
+across clusters of CTAs and at widths other than 40 and 80.
 """
 import jax
 import jax.numpy as jnp
@@ -70,7 +71,8 @@ def _plain(A, B, X0):
 
 @pytest.mark.parametrize("Fl,m,warm", [(8, 8, "warm"), (16, 16, "warm"),
                                        (8, 40, "warm"), (8, 8, "garbage"),
-                                       (8, 40, "nan")])
+                                       (8, 40, "nan"), (8, 80, "warm"),
+                                       (8, 80, "garbage")])
 def test_plain_level_matches_jax(Fl, m, warm):
     rng = np.random.default_rng(Fl * 100 + m)
     A, B, X0 = _random_level(rng, Fl, m, warm)
@@ -101,10 +103,38 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
     A = torch.zeros((8, 8, 8))
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.fused_level(A, A, A[:4].contiguous(), 0.95)
+        kernels.fused_level(A, A[:7].contiguous(), A[:4].contiguous(), 0.95)
     with pytest.raises(ValueError, match="exceeds"):
         big = torch.zeros((2, 88, 88))
-        kernels.fused_level(big, big, big[:1], 0.95)
+        kernels.fused_level(big, big[:1], big[:1], 0.95)
+
+
+def test_kernel_wrapper_rejects_padded_b():
+    """The kernel takes B as (Fl-1, m, m) and zeroes the last pair's
+    B_right itself: a B padded to Fl blocks is refused."""
+    from omniswarm_torch import kernels
+
+    A = torch.zeros((8, 8, 8))
+    with pytest.raises(ValueError, match="unpadded"):
+        kernels.fused_level(A, A, A[:4].contiguous(), 0.95)
+
+
+def test_kernel_wrapper_rejects_misaligned_blocks():
+    """At m % 4 == 0 the kernel loads A, B and X0 16 bytes at a time: a
+    contiguous view that starts one element into its storage is refused
+    before it could fault on the card."""
+    from omniswarm_torch import kernels
+
+    flat = torch.zeros(8 * 8 * 8 + 1)
+    A = flat[:512].view(8, 8, 8)
+    X0 = torch.zeros((4, 8, 8))
+    shifted = flat[1:].view(8, 8, 8)
+    with pytest.raises(ValueError, match="16 bytes"):
+        kernels.fused_level(shifted, A[:7], X0, 0.95)
+    with pytest.raises(ValueError, match="16 bytes"):
+        kernels.fused_level(A, shifted[:7], X0, 0.95)
+    with pytest.raises(ValueError, match="16 bytes"):
+        kernels.fused_level(A, A[:7], shifted[:4], 0.95)
 
 
 @pytest.fixture
@@ -115,8 +145,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,t,warm", [(40, 32, "warm"), (80, 128, "warm"),
-                                      (40, 32, "garbage"), (40, 4, "nan")])
+@pytest.mark.parametrize("m,t,warm", [
+    (40, 32, "warm"), (80, 128, "warm"), (40, 32, "garbage"), (40, 4, "nan"),
+    # clusters of 8 (and 4) CTAs per pair at the path's small t
+    (80, 4, "garbage"), (80, 16, "warm"),
+    # run-time widths, ragged and empty panels, one pair
+    (12, 2, "warm"), (48, 8, "nan"), (60, 3, "garbage"), (1, 1, "warm"),
+    (80, 1, "warm")])
 def test_kernel_matches_plain_on_card(cuda_device, m, t, warm):
     from omniswarm_torch.core.precision import highp
 
@@ -132,3 +167,20 @@ def test_kernel_matches_plain_on_card(cuda_device, m, t, warm):
     for name, g, r in zip(NAMES, got, ref):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    err_msg=name, **TOL)
+
+
+@pytest.mark.cuda
+def test_cluster_size_rule_on_card(cuda_device):
+    """One wave of at most one CTA per SM: t = 128 pairs of 80-wide blocks
+    run one CTA each, the path's small levels a cluster of 8."""
+    from omniswarm_torch import kernels
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert kernels.fused_level_cluster(80, 128) == 1
+    assert kernels.fused_level_cluster(80, 4) == 8
+    assert kernels.fused_level_cluster(40, 4) == 8
+    assert kernels.fused_level_cluster(1, 4) == 1
+    for m in (40, 80):
+        for t in (128, 64, 32, 16, 8, 4):
+            c = kernels.fused_level_cluster(m, t)
+            assert c in (1, 2, 4, 8) and (c == 1 or t * c <= sms)
