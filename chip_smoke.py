@@ -28,12 +28,17 @@ non-zero without printing a result.
    LM iteration: the K1 phase's time of each shape the run launched, times
    its launches, beside the summed bound.
 4. The same at F=1024 (pack 4, m=80, 6 launches per iteration), against
-   the reference's 2330.99 and relative ATE < 0.1.
-5. K2 phase: the grid-NMS kernel against its plain version at
-   (40, 208, 400), the shape of one front-end step, on random u**8 heat and
-   on a real SuperPoint heat map of the path's first step: bit-exact.
-   CUDA-event medians of the kernel, the plain version and the library
-   call (max_pool2d + where), beside the bytes bound.
+   the reference's 2330.99 and relative ATE < 0.1. At both sizes a second
+   fused solve must give a bit-equal cost and equal poses.
+5. K2 phase: the grid-NMS kernel against its plain version, bit-exact,
+   at the edge cases of K2_EDGE_CASES (NaN, r = 0 and 16, W % 4 != 0, a
+   tiny map, unaligned views, column tiles) and at (40, 208, 400), the
+   shape of one front-end step, on random u**8 heat and on a real
+   SuperPoint heat map of the path's first step. CUDA-event medians of the
+   kernel with its input warm in L2 (``ms``) and cycling through 10
+   distinct maps, so each call reads HBM (``cold_ms``), of the plain
+   version and of the library call (max_pool2d + where), beside the bytes
+   bound.
 6. K3 phase: the top-1 retrieval kernel against its plain version at
    N = D = 4096 and at N = 512, D = 4096, Q = 1 and 5, and at the edge
    shapes N = 1000, D = 130, Q = 9 and N = D = 4096, Q = 8, on a partly
@@ -72,6 +77,17 @@ MAIN_PATHS = (
     # F, launches per LM iteration, reference cost, relative-ATE bar
     (100, 4, 177.25, 0.08),
     (1024, 6, 2330.99, 0.1),
+)
+# K2 edge cases, each checked bit-exact against the plain version: (shape,
+# r, kind, 16-byte aligned). NaN cells, r = 0 and 16, W % 4 != 0, a map
+# smaller than its window, views 4 bytes off 16 (4-byte loads), maps wider
+# than one column tile, run-time radii on both vector widths.
+K2_EDGE_CASES = (
+    ((2, 40, 64), 4, "nan", True), ((2, 33, 65), 0, "random", True),
+    ((1, 7, 5), 4, "random", True), ((1, 20, 37), 16, "nan", True),
+    ((40, 208, 400), 4, "random", False), ((3, 40, 64), 4, "nan", False),
+    ((2, 40, 1200), 4, "random", True), ((2, 40, 64), 7, "nan", True),
+    ((1, 50, 1000), 16, "random", False), ((2, 40, 1000), 16, "nan", True),
 )
 K3_RTOL = 1e-5
 K3_SHAPES = (
@@ -314,6 +330,15 @@ def main_path_phase(F: int, per_iter: int, ref_cost: float, ate_bar: float):
     check(launches == per_iter * res.iterations,
           f"{launches} K1 launches, expected {per_iter * res.iterations}")
 
+    again = entry(device="cuda", num_frames=F, num_drones=5, seed=0,
+                  max_iterations=iters)
+    same_poses = bool(np.array_equal(again.poses, res.poses))
+    print(f"main path F={F} again: cost {again.cost!r} vs {res.cost!r} "
+          f"poses equal {same_poses}", flush=True)
+    check(again.cost == res.cost and same_poses,
+          f"two fused solves differ: costs {again.cost!r} and {res.cost!r}, "
+          f"max pose diff {float(np.abs(again.poses - res.poses).max())}")
+
     unfused = entry(device="cuda", num_frames=F, num_drones=5, seed=0,
                     max_iterations=iters, fused=False)
     rel = abs(unfused.cost - res.cost) / abs(unfused.cost)
@@ -324,7 +349,7 @@ def main_path_phase(F: int, per_iter: int, ref_cost: float, ate_bar: float):
     check(rel <= 1e-3, f"fused and unfused costs differ by {rel:.3e}")
     return dict(F=F, cost=res.cost, initial_cost=res.initial_cost,
                 iterations=res.iterations, relative_ate=res.relative_ate,
-                launches=launches,
+                launches=launches, repeat_cost=again.cost,
                 levels=[[m, t, n] for (m, t), n in sorted(levels.items())],
                 ms_per_iteration=res.solve_s * 1e3 / res.iterations,
                 unfused_cost=unfused.cost,
@@ -350,22 +375,50 @@ def first_step_heat():
     return heat.contiguous()
 
 
+def k2_heat(rng, shape, kind: str, aligned: bool = True):
+    """u**8 heat on the card; ``nan`` plants NaN at an inner cell, a corner,
+    an edge and 3 random cells of each map; an unaligned map is a view that
+    starts 4 bytes off 16."""
+    import torch
+
+    h = (rng.uniform(size=shape) ** 8).astype(np.float32)
+    if kind == "nan":
+        B, H, W = shape
+        h[:, H // 2, W // 3] = h[:, 0, W - 1] = h[:, H - 1, W // 2] = np.nan
+        h[:, rng.integers(0, H, 3), rng.integers(0, W, 3)] = np.nan
+    heat = torch.from_numpy(h).cuda()
+    if not aligned:
+        view = torch.empty(heat.numel() + 1, device="cuda")[1:]
+        heat = view.view(shape).copy_(heat)
+    return heat
+
+
 def k2_phase():
     import torch
     import torch.nn.functional as F
 
     from omniswarm_torch import kernels
-    from omniswarm_torch.benchutil import bound, time_ms
+    from omniswarm_torch.benchutil import bound, time_cold_ms, time_ms
     from omniswarm_torch.ops.frontend_kernels import grid_nms_ref
 
     r = 4
     rng = np.random.default_rng(1)
     shape = (40, 208, 400)
-    inputs = {
-        "random_u8": torch.from_numpy(
-            (rng.uniform(size=shape) ** 8).astype(np.float32)).cuda(),
-        "superpoint_heat": first_step_heat(),
-    }
+    checked = []
+    for eshape, er, kind, aligned in K2_EDGE_CASES:
+        heat = k2_heat(rng, eshape, kind, aligned)
+        got = kernels.grid_nms(heat, er)
+        ref = grid_nms_ref(heat, er)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"K2 disagrees at {eshape} r={er} "
+              f"{kind} aligned={aligned}: {int((got != ref).sum())} cells")
+        checked.append(dict(shape=list(eshape), r=er, kind=kind,
+                            aligned=aligned, vector_width=(
+                                kernels.grid_nms_vector_width(heat, got)),
+                            kept=int((got > 0).sum())))
+    print("K2 checked only", json.dumps(checked), flush=True)
+    inputs = {"random_u8": k2_heat(rng, shape, "random"),
+              "superpoint_heat": first_step_heat()}
     rows = []
     for name, heat in inputs.items():
         check(tuple(heat.shape) == shape, f"K2 input {name} {heat.shape}")
@@ -376,18 +429,22 @@ def k2_phase():
               f"K2 disagrees on {name}: {int((got != ref).sum())} cells")
         kept = int((got > 0).sum())
         b_ms, by = bound(2 * heat.numel() * 4, heat.numel() * (4 * r + 1))
+        # 10 distinct maps (133 MB, > the 50 MB L2): each call reads HBM
+        cold = [torch.roll(heat, k, 0) for k in range(10)]
         row = dict(
             input=name, shape=list(shape), kept=kept, max_abs_err=float(
                 (got - ref).abs().max()),
             ms=time_ms(lambda: kernels.grid_nms(heat, r)),
+            cold_ms=time_cold_ms(lambda h: kernels.grid_nms(h, r), cold),
             plain_ms=time_ms(lambda: grid_nms_ref(heat, r)),
             library_ms=time_ms(lambda: torch.where(
                 heat >= F.max_pool2d(heat[:, None], 2 * r + 1, 1, r)[:, 0],
                 heat, 0.0)),
             bound_ms=b_ms, bound_by=by)
+        del cold
         print("kernel grid_nms", json.dumps(row), flush=True)
         rows.append(row)
-    return rows
+    return rows, checked
 
 
 def k3_inputs(rng, N: int, D: int, Q: int):
@@ -553,7 +610,7 @@ def main() -> int:
               flush=True)
 
     t0 = time.perf_counter()
-    k2_rows = k2_phase()
+    k2_rows, k2_checked = k2_phase()
     k3_rows = k3_phase()
     print(f"K2/K3 phases {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -593,11 +650,13 @@ def main() -> int:
         "launches": fe["k2_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2_main["ms"],
+        "cold_ms": k2_main["cold_ms"],
         "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"],
         "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"],
         "shapes": k2_rows,
+        "checked": k2_checked,
     }, {
         "name": "retrieval_top1",
         "route": "cuda",

@@ -1,15 +1,22 @@
-"""Time the fused-level kernel (K1) against another checkout's, in turns.
+"""Time the K1 and K2 kernels against another checkout's, in turns.
 
-    python -m omniswarm_torch.bench_level DIR
+    python -m omniswarm_torch.bench_level DIR [--kernels fused_level grid_nms]
 
 Needs a CUDA card. DIR is the root of another checkout, e.g. an unpacked
-``git archive`` of the parent commit. Builds both trees' kernels and, at each
-level shape the solve launches (m = 40 with t = 32, 16, 8, 4 at F=100; m = 80
-with t = 128 ... 4 at F=1024), times the other tree's kernel and this one's
-on the same warm-branch inputs in turns: other, this, this, other, twice
-(CUDA-event medians, ``benchutil.time_ms``). Prints the card, one JSON line
-per shape and K1's per-iteration sums at each F. It checks no result:
-``chip_smoke.py`` holds the kernel against its plain version.
+``git archive`` of the parent commit. Builds both trees' kernels and times
+the other tree's fused-level (K1) and grid-NMS (K2) kernels and this tree's
+on the same inputs in turns: other, this, this, other, twice (CUDA-event
+medians, ``benchutil.time_ms``).
+
+- K1 at each level shape the solve launches (m = 40 with t = 32, 16, 8, 4
+  at F=100; m = 80 with t = 128 ... 4 at F=1024), warm-branch inputs; then
+  K1's per-iteration sums at each F.
+- K2 at (40, 208, 400), one front-end step, and (3, 40, 70), r = 4, on u**8
+  heat: warm (one input, in L2) and cold (``benchutil.time_cold_ms`` over
+  10 distinct inputs, read from HBM at the main shape).
+
+Prints the card and one JSON line per shape. It checks no result:
+``chip_smoke.py`` holds the kernels against their plain versions.
 """
 from __future__ import annotations
 
@@ -25,12 +32,14 @@ import numpy as np
 import torch
 
 from omniswarm_torch import kernels
-from omniswarm_torch.benchutil import (SOLVE_LEVELS, level_bound_ms,
-                                       random_level, time_ms)
+from omniswarm_torch.benchutil import (SOLVE_LEVELS, bound, level_bound_ms,
+                                       random_level, time_cold_ms, time_ms)
 from omniswarm_torch.core.precision import highp
 from omniswarm_torch.solver.fused_level import _pad_b
 
 ROUNDS = 2
+NMS_SHAPES = ((40, 208, 400), (3, 40, 70))
+NMS_RADIUS = 4
 
 
 def other_kernels(root: Path):
@@ -54,19 +63,18 @@ def other_call(mod, A, B, X0):
     return lambda: mod.fused_level(A, B, X0, 0.95)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("other", type=Path, help="root of the other checkout")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("bench_level: needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
-    print(card, flush=True)
-    kernels.build(["fused_level"])
-    other = other_kernels(args.other)
+def in_turns(theirs, mine):
+    """(this tree's times, the other's): other, this, this, other, ROUNDS
+    times."""
+    ms, oms = [], []
+    for _ in range(ROUNDS):
+        oms.append(theirs())
+        ms += [mine(), mine()]
+        oms.append(theirs())
+    return ms, oms
+
+
+def bench_fused_level(other) -> None:
     rng = np.random.default_rng(0)
     per_iter = {}
     with highp():
@@ -77,13 +85,10 @@ def main() -> None:
                             for v in random_level(rng, 2 * t, m, "warm"))
                 mine = lambda: kernels.fused_level(A, B, X0, 0.95)  # noqa: E731
                 theirs = other_call(other, A, B, X0)
-                ms, oms = [], []
-                for _ in range(ROUNDS):
-                    oms.append(time_ms(theirs))
-                    ms += [time_ms(mine), time_ms(mine)]
-                    oms.append(time_ms(theirs))
+                ms, oms = in_turns(lambda: time_ms(theirs),
+                                   lambda: time_ms(mine))
                 b_ms, by = level_bound_ms(m, t)
-                row = dict(F=F, m=m, t=t,
+                row = dict(kernel="fused_level", F=F, m=m, t=t,
                            cluster=kernels.fused_level_cluster(m, t),
                            ms=statistics.median(ms), ms_runs=ms,
                            other_ms=statistics.median(oms),
@@ -92,8 +97,53 @@ def main() -> None:
                     total[key] += row[key]
                 print(json.dumps(row), flush=True)
             per_iter[F] = total
-    print(json.dumps({"card": card, "k1_ms_per_iteration": per_iter}),
-          flush=True)
+    print(json.dumps({"k1_ms_per_iteration": per_iter}), flush=True)
+
+
+def bench_grid_nms(other) -> None:
+    rng = np.random.default_rng(1)
+    r = NMS_RADIUS
+    for shape in NMS_SHAPES:
+        heats = [torch.from_numpy((rng.uniform(size=shape) ** 8).astype(
+            np.float32)).cuda() for _ in range(10)]
+        row = dict(kernel="grid_nms", shape=list(shape), r=r)
+        timers = {
+            "ms": lambda mod: time_ms(lambda: mod.grid_nms(heats[0], r)),
+            "cold_ms": lambda mod: time_cold_ms(
+                lambda h: mod.grid_nms(h, r), heats)}
+        for key, timer in timers.items():
+            ms, oms = in_turns(lambda: timer(other), lambda: timer(kernels))
+            row.update({key: statistics.median(ms), f"{key}_runs": ms,
+                        f"other_{key}": statistics.median(oms),
+                        f"other_{key}_runs": oms})
+        n = heats[0].numel()
+        row["bound_ms"], row["bound_by"] = bound(8 * n, n * (4 * r + 1))
+        print(json.dumps(row), flush=True)
+        del heats
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", type=Path, help="root of the other checkout")
+    ap.add_argument("--kernels", nargs="+", default=["fused_level",
+                                                     "grid_nms"],
+                    choices=["fused_level", "grid_nms"])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("bench_level: needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(card, flush=True)
+    kernels.build(args.kernels)
+    other = other_kernels(args.other)
+    other.build(args.kernels)
+    if "fused_level" in args.kernels:
+        bench_fused_level(other)
+    if "grid_nms" in args.kernels:
+        bench_grid_nms(other)
+    print(json.dumps({"card": card}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
 """Timing, bounds and level inputs shared by the port's on-card scripts.
 
 ``chip_smoke.py`` and ``omniswarm_torch.bench_level`` time kernels with
-``time_ms``, state the least time the card could take with ``bound``, and
-build fused-level (K1) inputs with ``random_level``.
+``time_ms`` (inputs warm in L2) and ``time_cold_ms`` (inputs read from
+HBM), state the least time the card could take with ``bound``, and build
+fused-level (K1) inputs with ``random_level``.
 """
 from __future__ import annotations
 
+import itertools
 import statistics
 
 import numpy as np
@@ -42,6 +44,14 @@ def time_ms(fn, reps: int = 21, calls: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def time_cold_ms(fn, inputs, **kw) -> float:
+    """``time_ms`` of ``fn(x)`` with x cycling through ``inputs``: given
+    distinct inputs larger than the 50 MB L2 in all, each call reads its
+    input from device memory, not from L2."""
+    it = itertools.cycle(inputs)
+    return time_ms(lambda: fn(next(it)), **kw)
 
 
 def bound(nbytes: float, ops: float):

@@ -119,6 +119,8 @@ def _load(name: str) -> ctypes.CDLL:
             fn = lib.grid_nms_launch
             fn.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
             fn.restype = i32
+            lib.grid_nms_vector_width.argtypes = [ptr, ptr, i32]
+            lib.grid_nms_vector_width.restype = i32
         elif name == "retrieval_top1":
             fn = lib.retrieval_top1_launch
             fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr,
@@ -236,6 +238,14 @@ def grid_nms(heat: torch.Tensor, nms_dist: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"grid_nms launch failed: CUDA error {err}")
     return out
+
+
+def grid_nms_vector_width(heat: torch.Tensor, out: torch.Tensor) -> int:
+    """Columns a thread of csrc/grid_nms.cu takes for this input and output:
+    4 (16-byte loads and stores) when W % 4 == 0 and both start on 16
+    bytes, else 1."""
+    return _load("grid_nms").grid_nms_vector_width(
+        heat.data_ptr(), out.data_ptr(), heat.shape[-1])
 
 
 def retrieval_top1(db: torch.Tensor, query: torch.Tensor,

@@ -214,8 +214,10 @@ def assemble_blocks(graph: DenseGraph, poses: torch.Tensor, *,
     m = 4D; the Hessian is T + U U^T with T block-tridiagonal. Intermediates
     keep the reference's frame-minor layout (..., F); small contractions are
     elementwise products and sums, so nothing here can run in TF32. The
-    loop scatters hit repeated rows and accumulate (``index_add_`` /
-    ``index_put_(accumulate=True)``).
+    loop columns are scattered with ``index_put_(accumulate=True)``; the
+    loops' gradient is one product with them (``U @ r``), whose sum has a
+    fixed order on the card, where a scatter-add over shared frame rows
+    would be a float atomic.
     """
     F, D = graph.pose_valid.shape
     m = 4 * D
@@ -405,19 +407,6 @@ def assemble_blocks(graph: DenseGraph, poses: torch.Tensor, *,
     ar4 = torch.arange(4, device=dev)
     grow_a = lp.frame_a[:, None] * m + lp.drone_a[:, None] * 4 + ar4[None]
     grow_b = lp.frame_b[:, None] * m + lp.drone_b[:, None] * 4 + ar4[None]
-    gl = torch.zeros((F * m,), dtype=dtype, device=dev)
-    gl.index_add_(0, grow_a.reshape(-1),
-                  torch.sum(ja * rl[:, :, None], 1).reshape(-1))
-    gl.index_add_(0, grow_b.reshape(-1),
-                  torch.sum(jb * rl[:, :, None], 1).reshape(-1))
-    gflat = gvec.reshape(F, m) + gl.reshape(F, m)
-
-    # apply masks: zero rows/cols, unit diagonal on masked entries
-    eye_m = torch.eye(m, dtype=dtype, device=dev)
-    A = A * mflat[:, :, None] * mflat[:, None, :]
-    A = A + eye_m[None] * (1.0 - mflat)[:, :, None] * eye_m[None]
-    Boff = Boff * mflat[:-1, :, None] * mflat[1:, None, :]
-    gflat = gflat * mflat
 
     # U[f, d*4+i, 4k+c] += J^T entries for each loop endpoint
     U = torch.zeros((F * m, 4 * L), dtype=dtype, device=dev)
@@ -430,6 +419,16 @@ def assemble_blocks(graph: DenseGraph, poses: torch.Tensor, *,
                  accumulate=True)
     U.index_put_((row_b.reshape(-1), col.reshape(-1)), jb.reshape(-1),
                  accumulate=True)
+    # the loops' gradient J^T r: one product, so the sum over loops that
+    # share frame rows has the same order in every run
+    gflat = gvec.reshape(F, m) + (U @ rl.reshape(4 * L)).reshape(F, m)
+
+    # apply masks: zero rows/cols, unit diagonal on masked entries
+    eye_m = torch.eye(m, dtype=dtype, device=dev)
+    A = A * mflat[:, :, None] * mflat[:, None, :]
+    A = A + eye_m[None] * (1.0 - mflat)[:, :, None] * eye_m[None]
+    Boff = Boff * mflat[:-1, :, None] * mflat[1:, None, :]
+    gflat = gflat * mflat
     U = U.reshape(F, m, 4 * L) * mflat[:, :, None]
     return A, Boff, gflat, U, cost
 

@@ -22,8 +22,9 @@ def problem():
     return data, ant
 
 
-def _both(data, ant_pos, poses):
-    jg = jdense.dense_graph_from_sim(data, ant_pos=ant_pos)
+def _both(data, ant_pos, poses, jg=None):
+    if jg is None:
+        jg = jdense.dense_graph_from_sim(data, ant_pos=ant_pos)
     with jax.default_matmul_precision("highest"):
         want = jax.jit(jdense.assemble_blocks)(jg, jnp.asarray(poses))
     tg = dense_graph_to_torch(jg, "cpu")
@@ -40,6 +41,40 @@ def test_assemble_blocks_matches_jax(problem, ant, at):
         poses = poses + np.random.default_rng(6).normal(
             0, 0.2, poses.shape).astype(np.float32)
     want, got = _both(data, ant_pos if ant else None, poses)
+    np.testing.assert_allclose(got[4], want[4], rtol=1e-5)
+    for name, g, w in zip(NAMES, got[:4], want[:4]):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("at", ["vio", "perturbed"])
+def test_assemble_blocks_shared_loop_rows_match_jax(problem, at):
+    """Loops whose endpoints land on the same frame rows: the port sums
+    their gradient rows as one product with the loop columns (U @ r), the
+    reference scatter-adds them; both give the same g and U."""
+    data, _ = problem
+    jg = jdense.dense_graph_from_sim(data)
+    lp = jg.loops
+    fa, da, fb, db = (np.array(v) for v in (lp.frame_a, lp.drone_a,
+                                            lp.frame_b, lp.drone_b))
+    valid = np.flatnonzero(np.asarray(lp.valid))
+    k0 = valid[0]
+    row = (fa[k0], da[k0])
+    off_b = [k for k in valid[1:] if (fb[k], db[k]) != row]
+    off_a = [k for k in valid[1:] if (fa[k], da[k]) != row]
+    k1, k2 = off_b[:2]
+    k3 = next(k for k in off_a if k not in (k1, k2))
+    fa[[k1, k2]], da[[k1, k2]] = row                # three loops start on
+    fb[k3], db[k3] = row                            # one row, a fourth ends
+    assert not ((fa == fb) & (da == db))[valid].any()   # there
+    jg = jg._replace(loops=lp._replace(frame_a=fa, drone_a=da, frame_b=fb,
+                                       drone_b=db))
+    poses = np.asarray(data.vio, np.float32)
+    if at == "perturbed":
+        poses = poses + np.random.default_rng(8).normal(
+            0, 0.2, poses.shape).astype(np.float32)
+    want, got = _both(data, None, poses, jg)
     np.testing.assert_allclose(got[4], want[4], rtol=1e-5)
     for name, g, w in zip(NAMES, got[:4], want[:4]):
         assert g.shape == w.shape, name

@@ -30,12 +30,25 @@ def _heat(rng, B, H, W, kind):
         h[:, 0, 0] = 1.0                          # corners and edges
         h[:, -1, -1] = 1.0
         h[:, -1, 5] = 0.75
+    elif kind == "nan":
+        B, H, W = h.shape
+        h[:, H // 2, W // 3] = np.nan             # inside, a corner and
+        h[:, 0, W - 1] = np.nan                   # an edge: every window
+        h[:, H - 1, W // 2] = np.nan              # that holds one gives 0
+        h[:, rng.integers(0, H, 3), rng.integers(0, W, 3)] = np.nan
     return h
+
+
+# edge cases of the window: NaN cells, r = 0, a map smaller than its window,
+# the largest radius with NaN
+NMS_EDGE_CASES = [((2, 40, 64), 4, "nan"), ((2, 33, 65), 0, "random"),
+                  ((1, 7, 5), 4, "random"), ((1, 20, 37), 16, "nan")]
 
 
 @pytest.mark.parametrize("shape,r,kind", [
     ((2, 64, 128), 4, "random"), ((3, 40, 70), 4, "plateau"),
-    ((1, 48, 96), 2, "plateau"), ((2, 33, 65), 1, "random")])
+    ((1, 48, 96), 2, "plateau"), ((2, 33, 65), 1, "random")]
+    + NMS_EDGE_CASES)
 def test_plain_nms_matches_pallas_and_xla(shape, r, kind):
     heat = _heat(np.random.default_rng(sum(shape) + r), *shape, kind)
     got = fk.grid_nms_ref(torch.from_numpy(heat), r).numpy()
@@ -45,6 +58,7 @@ def test_plain_nms_matches_pallas_and_xla(shape, r, kind):
         xla = np.asarray(jkp.grid_nms(jnp.asarray(heat[b]), r))
         np.testing.assert_array_equal(got[b], pallas)
         np.testing.assert_array_equal(got[b], xla)
+    assert not np.isnan(got).any()
     if kind == "plateau":
         # ties keep every cell whose window lies inside the plateau
         assert (got[:, 4 + r:20 - r, 8 + r:30 - r] == 0.5).all()
@@ -164,12 +178,19 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,r,kind", [
-    ((40, 208, 400), 4, "random"), ((3, 40, 70), 4, "plateau"),
-    ((2, 33, 65), 1, "random"), ((1, 100, 37), 16, "plateau")])
-def test_nms_kernel_bit_exact_on_card(cuda_device, shape, r, kind):
+@pytest.mark.parametrize("shape,r,kind,aligned", [
+    ((40, 208, 400), 4, "random", True), ((3, 40, 70), 4, "plateau", True),
+    ((2, 33, 65), 1, "random", True), ((1, 100, 37), 16, "plateau", True),
+    ((2, 40, 1200), 4, "random", True), ((3, 40, 64), 4, "random", False),
+    ((2, 40, 64), 7, "nan", False), ((2, 40, 64), 7, "nan", True),
+    ((1, 50, 1000), 16, "random", True)]
+    + [(*case, True) for case in NMS_EDGE_CASES])
+def test_nms_kernel_bit_exact_on_card(cuda_device, shape, r, kind, aligned):
     heat = torch.from_numpy(_heat(np.random.default_rng(7), *shape,
                                   kind)).to(cuda_device)
+    if not aligned:                               # a view 4 bytes off 16
+        view = torch.empty(heat.numel() + 1, device=cuda_device)[1:]
+        heat = view.view(shape).copy_(heat)
     launches = fk.grid_nms.launches
     got = fk.grid_nms(heat, r)
     ref = fk.grid_nms_ref(heat, r)
