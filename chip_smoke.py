@@ -30,6 +30,24 @@ non-zero without printing a result.
 4. The same at F=1024 (pack 4, m=80, 6 launches per iteration), against
    the reference's 2330.99 and relative ATE < 0.1. At both sizes a second
    fused solve must give a bit-equal cost and equal poses.
+4a. The rest of the solver, each path solved twice (bit-equal cost and
+   poses), 20 LM iterations, function_tolerance 0, seed 0, D=5, held to
+   the JAX package's CPU anchors in SOLVER_ANCHORS (tools/solver_anchors.py):
+   PCG at F=1024 (linear="pcg", 24 CG sweeps; K1 launches and level shapes
+   recorded as in 3; cost within 1% of its anchor; then, at 50 iterations
+   as in the reference's test, within 5e-3 of an exact-Woodbury solve of
+   the same problem and relative ATE < 0.02 against its poses; the fast
+   Woodbury solve of 4 stalls far above both in the reference too, so its
+   difference is printed, not held); the exact
+   path at F=100 (exact_linear=True, no K1; 1%, ATE < 0.08); the lock-step
+   batch of 8 at F=100 (bench.py's inits; each lane within rtol 0.05, atol
+   0.5 of a single solve of its init and of its anchor, lane 0 ATE < 0.08,
+   no K1); pose_covariances of the newest frame of each drone at the F=100
+   solution of 3 (against the inverse of assemble_dense's H + 1e-6 I and the
+   anchor's diagonals, rtol 0.05, atol 5e-4); the gold paths at F=100:
+   lm_solve_dense, lm_solve and lm_solve_multi_init (4 inits) within 1% of
+   their anchors, dense against generic within 5e-2 in cost and 0.03 in
+   relative ATE. Each path's ms per LM iteration is printed.
 5. K2 phase: the grid-NMS kernel against its plain version, bit-exact,
    at the edge cases of K2_EDGE_CASES (NaN, r = 0 and 16, W % 4 != 0, a
    tiny map, unaligned views, column tiles) and at (40, 208, 400), the
@@ -53,11 +71,13 @@ non-zero without printing a result.
    inverse-range landmark sums and global-descriptor projection within
    frontend_entry.checksum_faults's tolerances, at least 95% of the 75
    top-1 indices equal, the top-1 precision within 0.02.
-8. One JSON line with the kernels' numbers, then the result line.
+8. One JSON line with the solver paths' numbers, one with the kernels'
+   numbers, then the result line.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import subprocess
@@ -77,6 +97,25 @@ MAIN_PATHS = (
     # F, launches per LM iteration, reference cost, relative-ATE bar
     (100, 4, 177.25, 0.08),
     (1024, 6, 2330.99, 0.1),
+)
+SOLVER_ITERS = 20
+# The solver paths' anchors, from the JAX package on the CPU
+# (PYTHONPATH=. JAX_PLATFORMS=cpu python tools/solver_anchors.py)
+SOLVER_ANCHORS = dict(
+    pcg_1024=dict(cost=2011.31409),
+    exact_100=dict(cost=177.128342),
+    batch_100=dict(cost=[177.250732, 177.388657, 177.60434, 247.1297,
+                         177.591339, 177.455841, 177.439407, 177.776428]),
+    # per drone d, the (x, y, z, yaw) variances of pose (99, d)
+    cov_100=dict(diag=[
+        [0.00873469, 0.0194593, 0.0135628, 0.000738012],
+        [0.01161, 0.0147984, 0.0141377, 0.000876103],
+        [0.0108905, 0.0112982, 0.0094109, 0.000725998],
+        [0.00918638, 0.0108395, 0.00927172, 0.000714457],
+        [0.00971783, 0.0168393, 0.0149874, 0.000820859]]),
+    dense_100=dict(cost=177.128357),
+    generic_100=dict(cost=177.128387),
+    multi_100=dict(cost=177.128326),
 )
 # K2 edge cases, each checked bit-exact against the plain version: (shape,
 # r, kind, 16-byte aligned). NaN cells, r = 0 and 16, W % 4 != 0, a map
@@ -272,22 +311,20 @@ def k1_per_iteration_of(rows, path):
               f"a shape the kernel phase did not time")
         out["ms"] += count * by_shape[m, t]["ms"] / n
         out["bound_ms"] += count * by_shape[m, t]["bound_ms"] / n
-    print(f"K1 per LM iteration F={path['F']}: {out['launches']:g} launches "
+    name = path.get("path", f"main path F={path['F']}")
+    print(f"K1 per LM iteration {name}: {out['launches']:g} launches "
           f"{out['ms']:.5f} ms (bound {out['bound_ms']:.5f} ms)", flush=True)
     return out
 
 
-def main_path_phase(F: int, per_iter: int, ref_cost: float, ate_bar: float):
-    import torch
-
+@contextlib.contextmanager
+def k1_recording():
+    """Sets K1's counts to 0 and records the (m, t) of every kernel launch
+    (the wrapper counts) into the Counter it yields."""
     from omniswarm_torch import kernels
-    from omniswarm_torch.benchutil import SOLVE_LEVELS
-    from omniswarm_torch.entry import entry
     from omniswarm_torch.solver.fused_level import (
         fused_reduction_level, fused_reduction_level_ref)
 
-    iters = 20
-    # record the (m, t) of every K1 launch of the solve (the wrapper counts)
     launch, levels = kernels.fused_level, collections.Counter()
 
     def recording_launch(A, B, X0, guard):
@@ -298,17 +335,48 @@ def main_path_phase(F: int, per_iter: int, ref_cost: float, ate_bar: float):
     fused_reduction_level.launches = 0
     fused_reduction_level_ref.calls = 0
     try:
-        res = entry(device="cuda", num_frames=F, num_drones=5, seed=0,
-                    max_iterations=iters)
+        yield levels
     finally:
         kernels.fused_level = launch
-    launches = fused_reduction_level.launches
+
+
+def check_k1_levels(F: int, levels, iters: int) -> int:
+    """K1's launches of a path just run: every launch a kernel launch, at the
+    level shapes of SOLVE_LEVELS for F, each once per iteration."""
+    from omniswarm_torch.benchutil import SOLVE_LEVELS
+    from omniswarm_torch.solver.fused_level import (
+        fused_reduction_level, fused_reduction_level_ref)
+
     check(fused_reduction_level_ref.calls == 0,
           "the plain level ran on the card path")
     want = {(m, t): iters for F_, m, ts in SOLVE_LEVELS if F_ == F
             for t in ts}
     check(dict(levels) == want, f"K1 level shapes {dict(levels)}, "
           f"expected {want}")
+    return fused_reduction_level.launches
+
+
+def check_repeat(name: str, a_cost: float, b_cost: float, a_poses,
+                 b_poses) -> None:
+    """Two solves of one path in one process: bit-equal cost and poses."""
+    same = bool(np.array_equal(a_poses, b_poses))
+    print(f"{name} again: cost {b_cost!r} vs {a_cost!r} poses equal {same}",
+          flush=True)
+    check(a_cost == b_cost and same,
+          f"two {name} solves differ: costs {a_cost!r} and {b_cost!r}, max "
+          f"pose diff {float(np.abs(a_poses - b_poses).max())}")
+
+
+def main_path_phase(F: int, per_iter: int, ref_cost: float, ate_bar: float):
+    import torch
+
+    from omniswarm_torch.entry import entry
+
+    iters = SOLVER_ITERS
+    with k1_recording() as levels:
+        res = entry(device="cuda", num_frames=F, num_drones=5, seed=0,
+                    max_iterations=iters)
+    launches = check_k1_levels(F, levels, iters)
     print(f"main path F={F} D=5: loops {res.num_loops} detections "
           f"{res.num_detections} cost {res.initial_cost:.4f} -> "
           f"{res.cost:.4f} (reference {ref_cost}) iterations "
@@ -332,12 +400,8 @@ def main_path_phase(F: int, per_iter: int, ref_cost: float, ate_bar: float):
 
     again = entry(device="cuda", num_frames=F, num_drones=5, seed=0,
                   max_iterations=iters)
-    same_poses = bool(np.array_equal(again.poses, res.poses))
-    print(f"main path F={F} again: cost {again.cost!r} vs {res.cost!r} "
-          f"poses equal {same_poses}", flush=True)
-    check(again.cost == res.cost and same_poses,
-          f"two fused solves differ: costs {again.cost!r} and {res.cost!r}, "
-          f"max pose diff {float(np.abs(again.poses - res.poses).max())}")
+    check_repeat(f"main path F={F}", res.cost, again.cost, res.poses,
+                 again.poses)
 
     unfused = entry(device="cuda", num_frames=F, num_drones=5, seed=0,
                     max_iterations=iters, fused=False)
@@ -347,6 +411,7 @@ def main_path_phase(F: int, per_iter: int, ref_cost: float, ate_bar: float):
           f" ms/iteration", flush=True)
     check(unfused.k1_launches == 0, "fused=False launched the kernel")
     check(rel <= 1e-3, f"fused and unfused costs differ by {rel:.3e}")
+    main_poses[F] = res.poses
     return dict(F=F, cost=res.cost, initial_cost=res.initial_cost,
                 iterations=res.iterations, relative_ate=res.relative_ate,
                 launches=launches, repeat_cost=again.cost,
@@ -355,6 +420,251 @@ def main_path_phase(F: int, per_iter: int, ref_cost: float, ate_bar: float):
                 unfused_cost=unfused.cost,
                 unfused_ms_per_iteration=(unfused.solve_s * 1e3
                                           / unfused.iterations))
+
+
+main_poses = {}          # the main paths' solved poses, by F
+
+
+def held(name: str, got: float, want: float, rtol: float = 0.01,
+         atol: float = 0.0) -> None:
+    check(math.isfinite(got) and abs(got - want) <= atol + rtol * abs(want),
+          f"{name} {got!r} not within rtol {rtol} atol {atol} of its "
+          f"anchor {want!r}")
+
+
+def perturbed_inits(vio: np.ndarray, lanes: int) -> np.ndarray:
+    """bench.py's batch inits: lane 0 VIO, lanes 1.. VIO + N(0, 0.4) on the
+    positions of every drone but the first (numpy default_rng(0))."""
+    rng = np.random.default_rng(0)
+    F, D = vio.shape[:2]
+    inits = np.tile(np.asarray(vio, np.float32)[None], (lanes, 1, 1, 1))
+    for b in range(1, lanes):
+        inits[b, :, 1:, :3] += rng.normal(
+            0, 0.4, size=(F, D - 1, 3)).astype(np.float32)
+    return inits
+
+
+def timed(fn):
+    """(result, synchronised wall seconds) of fn()."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def report(name: str, res, seconds: float, **extra) -> dict:
+    """Print and return a solve's numbers (ms per LM iteration)."""
+    cost = np.asarray(res.cost.cpu() if hasattr(res.cost, "cpu")
+                      else res.cost, np.float64)
+    out = dict(path=name, cost=cost.tolist(), iterations=res.iterations,
+               ms_per_iteration=seconds * 1e3 / res.iterations, **extra)
+    print(f"solver path {name}: cost {out['cost']} iterations "
+          f"{res.iterations} {out['ms_per_iteration']:.2f} ms/iteration "
+          + " ".join(f"{k} {v}" for k, v in extra.items()), flush=True)
+    return out
+
+
+def pcg_phase(smw: dict, per_iter: int) -> dict:
+    """linear="pcg" at F=1024 through entry(), against an exact-Woodbury
+    solve and its anchor; K1 must launch per_iter times an iteration at the
+    main path's level shapes."""
+    from omniswarm_torch.entry import entry
+    from omniswarm_torch.eval import metrics
+
+    F, iters, a = 1024, SOLVER_ITERS, SOLVER_ANCHORS["pcg_1024"]
+    kw = dict(device="cuda", num_frames=F, num_drones=5, seed=0,
+              max_iterations=iters)
+    with k1_recording() as levels:
+        res = entry(linear="pcg", **kw)
+    launches = check_k1_levels(F, levels, iters)
+    again = entry(linear="pcg", **kw)
+    check_repeat("pcg F=1024", res.cost, again.cost, res.poses, again.poses)
+    # near convergence, as tests/test_bt_lm.py:87-99 compares the paths
+    kw["max_iterations"] = 50
+    pcg50 = entry(linear="pcg", **kw)
+    exact = entry(exact_linear=True, **kw)
+    vs_exact = metrics.mean_relative_ate(pcg50.poses, exact.poses)
+    out = dict(path="pcg F=1024", F=F, cost=res.cost,
+               initial_cost=res.initial_cost, iterations=res.iterations,
+               relative_ate=res.relative_ate, pcg50_cost=pcg50.cost,
+               pcg50_relative_ate=pcg50.relative_ate, exact_cost=exact.cost,
+               exact_relative_ate=exact.relative_ate, ate_vs_exact=vs_exact,
+               smw_cost=smw["cost"], smw_relative_ate=smw["relative_ate"],
+               ate_vs_smw=metrics.mean_relative_ate(res.poses,
+                                                    main_poses[F]),
+               launches=launches,
+               levels=[[m, t, n] for (m, t), n in sorted(levels.items())],
+               ms_per_iteration=res.solve_s * 1e3 / res.iterations,
+               exact_ms_per_iteration=exact.solve_s * 1e3 / exact.iterations,
+               smw_ms_per_iteration=smw["ms_per_iteration"])
+    print("solver path", json.dumps(out), flush=True)
+    check(math.isfinite(res.cost) and res.cost < res.initial_cost,
+          f"pcg cost {res.cost} not below initial {res.initial_cost}")
+    held("pcg F=1024 cost", res.cost, a["cost"])
+    held("pcg F=1024 cost at 50 iterations vs the exact-Woodbury solve",
+         pcg50.cost, exact.cost, rtol=5e-3)
+    check(vs_exact < 0.02, f"pcg relative ATE vs exact {vs_exact} >= 0.02")
+    check(res.relative_ate < 0.1, f"pcg relative ATE {res.relative_ate}")
+    check(res.iterations == iters and launches == per_iter * iters,
+          f"pcg: {res.iterations} iterations, {launches} K1 launches")
+    return out
+
+
+def exact_phase() -> dict:
+    from omniswarm_torch.entry import entry
+
+    a = SOLVER_ANCHORS["exact_100"]
+    runs = [entry(device="cuda", num_frames=100, num_drones=5, seed=0,
+                  max_iterations=SOLVER_ITERS, exact_linear=True)
+            for _ in range(2)]
+    res = runs[0]
+    check_repeat("exact F=100", res.cost, runs[1].cost, res.poses,
+                 runs[1].poses)
+    out = dict(path="exact F=100", cost=res.cost,
+               initial_cost=res.initial_cost, iterations=res.iterations,
+               relative_ate=res.relative_ate, k1_launches=res.k1_launches,
+               ms_per_iteration=res.solve_s * 1e3 / res.iterations)
+    print("solver path", json.dumps(out), flush=True)
+    held("exact F=100 cost", res.cost, a["cost"])
+    check(res.relative_ate < 0.08, f"exact relative ATE {res.relative_ate}")
+    check(res.k1_launches == 0, "the exact path launched K1")
+    check(res.iterations == SOLVER_ITERS, f"{res.iterations} iterations")
+    return out
+
+
+def batch_phase(data, graph) -> dict:
+    import torch
+
+    from omniswarm_torch.eval import metrics
+    from omniswarm_torch.solver.dense import lm_solve_bt, lm_solve_bt_batched
+    from omniswarm_torch.solver.fused_level import fused_reduction_level
+
+    a = SOLVER_ANCHORS["batch_100"]
+    kw = dict(device="cuda", max_iterations=SOLVER_ITERS,
+              function_tolerance=0.0)
+    inits = perturbed_inits(data.vio, 8)
+    launches0 = fused_reduction_level.launches
+    res, seconds = timed(lambda: lm_solve_bt_batched(graph, inits, **kw))
+    again = lm_solve_bt_batched(graph, inits, **kw)
+    poses = res.poses.cpu().numpy()
+    check_repeat("batch-8 F=100", tuple(res.cost.tolist()),
+                 tuple(again.cost.tolist()), poses,
+                 again.poses.cpu().numpy())
+    check(fused_reduction_level.launches == launches0,
+          "the batched path launched K1")
+    costs = res.cost.cpu().numpy().astype(np.float64)
+    singles = [float(lm_solve_bt(graph, p, **kw).cost) for p in inits]
+    ate0 = metrics.mean_relative_ate(poses[0], data.gt)
+    out = report("batch-8 F=100", res, seconds, single_costs=singles,
+                 lane0_relative_ate=ate0,
+                 ms_per_lane_iteration=seconds * 1e3 / res.iterations / 8)
+    check(bool(torch.isfinite(res.poses).all()), "batch poses not finite")
+    for b in range(8):
+        held(f"batch lane {b} cost vs its single solve", costs[b],
+             singles[b], rtol=0.05, atol=0.5)
+        held(f"batch lane {b} cost", costs[b], a["cost"][b], rtol=0.05,
+             atol=0.5)
+    check(ate0 < 0.08, f"batch lane 0 relative ATE {ate0}")
+    check(res.iterations == SOLVER_ITERS, f"{res.iterations} iterations")
+    return out
+
+
+def covariance_phase(graph) -> dict:
+    import torch
+
+    from omniswarm_torch.convert import dense_graph_to_torch
+    from omniswarm_torch.solver.dense import assemble_dense, pose_covariances
+
+    a = SOLVER_ANCHORS["cov_100"]
+    poses = main_poses[100]
+    query = np.asarray([[99, d] for d in range(5)], np.int64)
+    cov, seconds = timed(lambda: pose_covariances(graph, poses, query,
+                                                  device="cuda"))
+    again = pose_covariances(graph, poses, query, device="cuda")
+    check(torch.equal(cov, again), "two covariance runs differ")
+    cov = cov.cpu().numpy()
+    H, _, _ = assemble_dense(dense_graph_to_torch(graph, "cuda"),
+                             torch.from_numpy(poses).cuda())
+    H = H.double().cpu().numpy()
+    Hinv = np.linalg.inv(H + 1e-6 * np.eye(H.shape[0]))
+    diag = np.diagonal(cov, axis1=1, axis2=2)
+    err = 0.0
+    for q, (f, d) in enumerate(query):
+        i = 4 * (f * 5 + d)
+        ref = Hinv[i:i + 4, i:i + 4]
+        excess = np.abs(cov[q] - ref) - (5e-4 + 0.05 * np.abs(ref))
+        check(bool((excess <= 0).all()), f"covariance of {f, d} differs from "
+              f"the dense inverse by {np.abs(cov[q] - ref).max():.3e}")
+        err = max(err, float(np.abs(cov[q] - ref).max()))
+    excess = np.abs(diag - np.asarray(a["diag"])) - (
+        5e-4 + 0.05 * np.abs(np.asarray(a["diag"])))
+    check(bool((excess <= 0).all()), f"covariance diagonals {diag.tolist()} "
+          f"differ from their anchors {a['diag']}")
+    out = dict(path="covariances F=100", query=query.tolist(),
+               diag=diag.tolist(), max_abs_err_vs_dense_inverse=err,
+               ms=seconds * 1e3)
+    print("solver path", json.dumps(out), flush=True)
+    return out
+
+
+def gold_phase(data, graph) -> list:
+    from omniswarm_torch.eval import metrics
+    from omniswarm_torch.sim.pipeline import build_graph_from_sim
+    from omniswarm_torch.solver.dense import lm_solve_dense
+    from omniswarm_torch.solver.gauss_newton import (lm_solve,
+                                                     lm_solve_multi_init)
+
+    kw = dict(device="cuda", max_iterations=SOLVER_ITERS,
+              function_tolerance=0.0)
+    fg, finit = build_graph_from_sim(data, enable_detections=True)
+    inits = perturbed_inits(data.vio, 4)
+    paths = (("dense_100", "lm_solve_dense F=100",
+              lambda: lm_solve_dense(graph, data.vio, **kw)),
+             ("generic_100", "lm_solve F=100",
+              lambda: lm_solve(fg, finit, **kw)),
+             ("multi_100", "lm_solve_multi_init x4 F=100",
+              lambda: lm_solve_multi_init(fg, inits, **kw)))
+    out, ate = [], {}
+    for key, name, solve in paths:
+        res, seconds = timed(solve)
+        again = solve()
+        poses = res.poses.cpu().numpy()
+        check_repeat(name, float(res.cost), float(again.cost), poses,
+                     again.poses.cpu().numpy())
+        ate[key] = metrics.mean_relative_ate(poses, data.gt)
+        lanes = len(inits) if key == "multi_100" else 1
+        out.append(report(name, res, seconds, relative_ate=ate[key],
+                          lanes=lanes, ms_per_lane_iteration=(
+                              seconds * 1e3 / res.iterations / lanes)))
+        check(float(res.cost) < float(res.initial_cost),
+              f"{name} cost not below initial")
+        held(f"{name} cost", float(res.cost), SOLVER_ANCHORS[key]["cost"])
+    held("dense cost vs generic", out[0]["cost"], out[1]["cost"], rtol=5e-2)
+    check(ate["dense_100"] < 0.08, f"dense relative ATE {ate['dense_100']}")
+    check(abs(ate["dense_100"] - ate["generic_100"]) < 0.03,
+          f"dense and generic relative ATE {ate}")
+    return out
+
+
+def solver_phases(paths: dict) -> dict:
+    """Phase 4a: the rest of the solver package (see the docstring)."""
+    from omniswarm_torch import sim
+    from omniswarm_torch.solver.dense import dense_graph_from_sim
+
+    out = {}
+    t0 = time.perf_counter()
+    out["pcg"] = pcg_phase(paths[1024], MAIN_PATHS[1][1])
+    out["exact"] = exact_phase()
+    data = sim.generate(sim.SimParams(num_drones=5, num_frames=100, seed=0))
+    graph = dense_graph_from_sim(data)
+    out["batch"] = batch_phase(data, graph)
+    out["covariances"] = covariance_phase(graph)
+    out["gold"] = gold_phase(data, graph)
+    print(f"solver paths phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def first_step_heat():
@@ -609,6 +919,9 @@ def main() -> int:
         print(f"main path F={F} phase {time.perf_counter() - t0:.1f} s",
               flush=True)
 
+    solver = solver_phases(paths)
+    k1_per_iteration["pcg_1024"] = k1_per_iteration_of(rows, solver["pcg"])
+
     t0 = time.perf_counter()
     k2_rows, k2_checked = k2_phase()
     k3_rows = k3_phase()
@@ -638,6 +951,7 @@ def main() -> int:
         "bound_by": main["bound_by"],
         "library_ms": None,
         "launches_f1024": paths[1024]["launches"],
+        "launches_pcg_f1024": solver["pcg"]["launches"],
         "shapes": rows,
         "checked": k1_checked,
         "per_iteration": k1_per_iteration,
@@ -673,6 +987,7 @@ def main() -> int:
         "shapes": k3_rows,
         "frontend_path": fe,
     }]}
+    print("solver paths", json.dumps(solver), flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

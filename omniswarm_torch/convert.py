@@ -2,10 +2,11 @@
 
 The solve has no learned parameters: its "weights" are the factor graph and,
 for a warm restart, the Newton-Schulz warm state. ``dense_graph_to_torch``
-reads any DenseGraph-shaped object field by field (numpy, JAX or torch
-leaves; JAX leaves go through ``numpy.asarray``) and builds the port's
-``DenseGraph`` on a device. The JAX package is never imported: the
-conversion works on duck-typed fields.
+and ``factor_graph_to_torch`` read any DenseGraph- or FactorGraph-shaped
+object field by field (numpy, JAX or torch leaves; JAX leaves go through
+``numpy.asarray``) and build the port's container on a device. A stacked
+DenseGraph (a leading lane axis on every leaf) converts the same way. The
+JAX package is never imported: the conversion works on duck-typed fields.
 
 The front-end's networks do have weights. ``superpoint_params_from_flax``
 and ``netvlad_params_from_flax`` take a flat Flax-layout dict of numpy
@@ -27,7 +28,8 @@ import numpy as np
 import torch
 
 from omniswarm_torch.solver.dense import DenseGraph
-from omniswarm_torch.solver.graph import RelPoseFactors
+from omniswarm_torch.solver.graph import (DetectionFactors, FactorGraph,
+                                          RangeFactors, RelPoseFactors)
 
 
 def _tensor(x, device: torch.device):
@@ -42,19 +44,31 @@ def _tensor(x, device: torch.device):
     return t.to(device)
 
 
-def dense_graph_to_torch(graph, device) -> DenseGraph:
-    """The port's DenseGraph, on ``device``, from a DenseGraph-shaped object."""
-    dev = torch.device(device)
+def _container(cls, obj, device: torch.device, nested=None):
+    """``cls`` built field by field from ``obj``; ``nested`` maps a field
+    name to the container class of that field."""
+    nested = nested or {}
     fields = {}
-    for name in DenseGraph._fields:
-        value = getattr(graph, name, None)
-        if name == "loops":
-            fields[name] = RelPoseFactors(
-                *(_tensor(getattr(value, f), dev)
-                  for f in RelPoseFactors._fields))
-        else:
-            fields[name] = _tensor(value, dev)
-    return DenseGraph(**fields)
+    for name in cls._fields:
+        value = getattr(obj, name, None)
+        fields[name] = (_container(nested[name], value, device)
+                        if name in nested else _tensor(value, device))
+    return cls(**fields)
+
+
+def dense_graph_to_torch(graph, device) -> DenseGraph:
+    """The port's DenseGraph, on ``device``, from a DenseGraph-shaped object
+    (single or stacked)."""
+    return _container(DenseGraph, graph, torch.device(device),
+                      {"loops": RelPoseFactors})
+
+
+def factor_graph_to_torch(graph, device) -> FactorGraph:
+    """The port's FactorGraph, on ``device``, from a FactorGraph-shaped
+    object."""
+    return _container(FactorGraph, graph, torch.device(device),
+                      {"ranges": RangeFactors, "odoms": RelPoseFactors,
+                       "loops": RelPoseFactors, "dets": DetectionFactors})
 
 
 def warm_state_to_torch(warm, device):

@@ -1,8 +1,8 @@
 """4-DoF pose geometry as broadcastable torch operations.
 
 Counterpart of ``omniswarm_tpu/core/geometry.py`` (normalize_angle ..
-delta_pose, :33-80, and the numpy tangent basis, :232). Poses are tensors of
-shape ``(..., 4)`` = ``[x, y, z, yaw]``, points ``(..., 3)``.
+delta_pose_trans, :33-85, and the numpy tangent basis, :232). Poses are
+tensors of shape ``(..., 4)`` = ``[x, y, z, yaw]``, points ``(..., 3)``.
 """
 from __future__ import annotations
 
@@ -16,7 +16,10 @@ TWO_PI = 2.0 * math.pi
 
 def normalize_angle(theta: torch.Tensor) -> torch.Tensor:
     """Wrap angle(s) to [-pi, pi)."""
-    return theta - TWO_PI * torch.floor((theta + math.pi) / TWO_PI)
+    # floor has a zero derivative, so its argument is detached: under
+    # torch.func.jacfwd a 0-d dual times a Python float promotes the
+    # tangent to float64
+    return theta - TWO_PI * torch.floor((theta.detach() + math.pi) / TWO_PI)
 
 
 def yaw_rotate(yaw: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
@@ -54,6 +57,11 @@ def delta_pose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     dt = yaw_rotate(-a[..., 3], b[..., :3] - a[..., :3])
     dyaw = normalize_angle(b[..., 3] - a[..., 3])
     return make_pose(dt, dyaw)
+
+
+def delta_pose_trans(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Translation-only relative position of b in a's frame, (..., 3)."""
+    return yaw_rotate(-a[..., 3], b[..., :3] - a[..., :3])
 
 
 def tangent_base_from_unit_np(unit_dir):

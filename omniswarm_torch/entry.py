@@ -38,14 +38,16 @@ class EntryResult(NamedTuple):
 
 def entry(device="cuda", num_frames: int = 100, num_drones: int = 5,
           seed: int = 0, max_iterations: int = 20,
-          fused: Optional[bool] = None) -> EntryResult:
+          fused: Optional[bool] = None, linear: str = "auto",
+          exact_linear: bool = False) -> EntryResult:
     """Run steps 1-4 of the main path and return the scored result.
 
     The solve runs with function_tolerance 0, so every one of the
     ``max_iterations`` LM iterations runs: the result then compares with
     the reference's near-converged cost and the kernel's launch count is
     fixed (4 per iteration at F=100). ``fused`` overrides the solver's
-    fused-level choice (default: on for packed blocks).
+    fused-level choice (default: on for packed blocks); ``linear`` and
+    ``exact_linear`` pick the linear path (``lm_solve_bt``).
     """
     dev = resolve_device(device)
     data = sim.generate(sim.SimParams(num_drones=num_drones,
@@ -57,7 +59,8 @@ def entry(device="cuda", num_frames: int = 100, num_drones: int = 5,
     t0 = time.perf_counter()
     res = lm_solve_bt(graph, data.vio, device=dev,
                       max_iterations=max_iterations,
-                      function_tolerance=0.0, fused=fused)
+                      function_tolerance=0.0, fused=fused, linear=linear,
+                      exact_linear=exact_linear)
     poses = res.poses.cpu().numpy()       # synchronises
     solve_s = time.perf_counter() - t0
     return EntryResult(

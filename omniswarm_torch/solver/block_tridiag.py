@@ -1,11 +1,20 @@
-"""Block-tridiagonal SPD solver by matmul-only cyclic reduction.
+"""Block-tridiagonal SPD solver by cyclic reduction.
 
-Counterpart of ``omniswarm_tpu/solver/block_tridiag.py`` (:31-519): the
-damped swarm Hessian without its loop columns is block-tridiagonal over
-frames (A: (F, m, m) diagonal blocks, B: (F-1, m, m) off-diagonals,
-B[f] couples f and f+1). Cyclic reduction eliminates the odd frames level by
-level with Newton-Schulz block inverses, so factor and apply are nothing but
-batched matmuls; a small dense tail closes the recursion.
+Counterpart of ``omniswarm_tpu/solver/block_tridiag.py``: the damped swarm
+Hessian without its loop columns is block-tridiagonal over frames (A:
+(F, m, m) diagonal blocks, B: (F-1, m, m) off-diagonals, B[f] couples f and
+f+1). Cyclic reduction eliminates the odd frames level by level. Two forms:
+
+- ``bt_solve``, exact: Cholesky block solves per level and one dense
+  Cholesky for the tail (the covariance and ``exact_linear`` paths);
+- ``bt_factor`` / ``bt_apply``, matmul-only: Newton-Schulz block inverses,
+  so factor and apply are nothing but batched matmuls (the LM fast path);
+  ``bt_solve_ns`` adds refinement passes against ``bt_matvec``.
+
+A block that is not positive definite makes ``torch.linalg.cholesky_ex``
+report ``info != 0``; its solve is then set to NaN (the reference's
+Cholesky returns NaN there), so an LM step through it is non-finite and
+rejected, and nothing raises.
 
 Mixed precision follows the reference: factor matrices are f32, a bf16
 right-hand side sweeps the levels in bf16, and every product of an f32
@@ -25,6 +34,79 @@ from omniswarm_torch.solver.fused_level import fused_reduction_level
 
 def _eye(m: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(m, dtype=like.dtype, device=like.device)
+
+
+def cholesky_solve_checked(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Batched SPD solve A Y = X by Cholesky; NaN where A is not PD.
+
+    ``cholesky_ex`` never raises and never syncs; a batch entry whose
+    factorization failed (``info != 0``) gets an all-NaN solution, whatever
+    the partial factor holds.
+    """
+    L, info = torch.linalg.cholesky_ex(A)
+    Y = torch.linalg.solve_triangular(L, X, upper=False)
+    Y = torch.linalg.solve_triangular(L.mT, Y, upper=True)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(Y, float("nan")), Y)
+
+
+def _tridiag_dense(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """The dense (Fl*m, Fl*m) matrix of a small block-tridiagonal system."""
+    Fl, m = A.shape[0], A.shape[1]
+    H = A.new_zeros((Fl, m, Fl, m))
+    idx = torch.arange(Fl, device=A.device)
+    H[idx, :, idx, :] = A
+    if Fl > 1:
+        H[idx[:-1], :, idx[:-1] + 1, :] = B[: Fl - 1]
+        H[idx[:-1] + 1, :, idx[:-1], :] = B[: Fl - 1].mT
+    return H.reshape(Fl * m, Fl * m)
+
+
+@highp()
+def bt_solve(A: torch.Tensor, B: torch.Tensor, rhs: torch.Tensor, *,
+             direct_threshold: int = 8) -> torch.Tensor:
+    """Exact solve of the block-tridiagonal SPD system; returns (F, m, K).
+
+    Cyclic reduction with Cholesky block solves halves the frame count per
+    level until at most ``direct_threshold`` blocks remain, then one dense
+    Cholesky finishes. Frames pad to a power of two (identity blocks).
+    """
+    A, B, rhs, F_orig, _ = _pad_pow2(A, B, rhs)
+    levels = []
+    while A.shape[0] > max(1, direct_threshold):
+        Fl = A.shape[0]
+        A_odd = A[1::2]
+        B_left = B[0::2]                             # couples 2t <-> 2t+1
+        B_right = torch.zeros_like(B_left)           # couples 2t+1 <-> 2t+2
+        if Fl > 2:
+            B_right[:-1] = B[1::2]
+        rhs_odd = rhs[1::2]
+        Ainv_Blt = cholesky_solve_checked(A_odd, B_left.mT)
+        Ainv_Br = cholesky_solve_checked(A_odd, B_right)
+        Ainv_r = cholesky_solve_checked(A_odd, rhs_odd)
+        # A'[t] = A[2t] - B[2t] Ainv[2t+1] B[2t]^T - B[2t-1]^T Ainv B[2t-1]
+        A_new = A[0::2] - B_left @ Ainv_Blt
+        A_new[1:] -= (B_right.mT @ Ainv_Br)[:-1]
+        # B'[t] couples 2t <-> 2t+2: -B[2t] Ainv[2t+1] B[2t+1]
+        B_new = -(B_left @ Ainv_Br)[:-1]
+        r_new = rhs[0::2] - B_left @ Ainv_r
+        r_new[1:] -= (B_right.mT @ Ainv_r)[:-1]
+        levels.append((A_odd, B_left, B_right, rhs_odd))
+        A, B, rhs = A_new, B_new, r_new
+
+    Fl, m, K = rhs.shape
+    x = cholesky_solve_checked(_tridiag_dense(A, B)[None],
+                               rhs.reshape(1, Fl * m, K))[0]
+    x = x.reshape(Fl, m, K)
+    for A_odd, B_left, B_right, rhs_odd in reversed(levels):
+        # x[2t+1] = Ainv[2t+1] (rhs[2t+1] - B[2t]^T x[2t] - B[2t+1] x[2t+2])
+        x_even = x
+        x_shift = torch.cat([x_even[1:], torch.zeros_like(x_even[:1])], 0)
+        r = rhs_odd - B_left.mT @ x_even - B_right @ x_shift
+        x_odd = cholesky_solve_checked(A_odd, r)
+        x = torch.stack([x_even, x_odd], dim=1).reshape(
+            (2 * x_even.shape[0],) + x_even.shape[1:])
+    return x[:F_orig]
 
 
 def _pad_pow2(A, B, rhs):
@@ -97,11 +179,13 @@ def unpack_bt_cols(x: torch.Tensor, p: int, F: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 @highp()
-def ns_inverse(A: torch.Tensor, iters: int = 12) -> torch.Tensor:
+def ns_inverse(A: torch.Tensor, iters: int = 12,
+               bf16_head: int = 0) -> torch.Tensor:
     """Approximate batched SPD inverse from the safe start I/rho.
 
     Jacobi scaling An = S A S, then X <- X (2I - An X) with rho >= lambda_max
-    (row-sum bound). Returns S X S ~= A^-1.
+    (row-sum bound). ``bf16_head`` leading iterations run in bfloat16 (each
+    product rounded back), then ``iters`` in f32. Returns S X S ~= A^-1.
     """
     n = A.shape[-1]
     d = torch.diagonal(A, dim1=-2, dim2=-1)
@@ -111,6 +195,12 @@ def ns_inverse(A: torch.Tensor, iters: int = 12) -> torch.Tensor:
     eye = _eye(n, A)
     X = eye / rho[..., None, None]
     two_eye = 2.0 * eye
+    if bf16_head:
+        bf16 = torch.bfloat16
+        Anb, Xb, tb = An.to(bf16), X.to(bf16), two_eye.to(bf16)
+        for _ in range(bf16_head):
+            Xb = (Xb @ (tb - Anb @ Xb)).to(bf16)
+        X = Xb.to(A.dtype)
     for _ in range(iters):
         X = X @ (two_eye - An @ X)
     return X * s[..., :, None] * s[..., None, :]
@@ -180,6 +270,20 @@ def spd_ns_inverse(S: torch.Tensor, X0: torch.Tensor | None = None, *,
     return X.to(S.dtype) * s[..., :, None] * s[..., None, :]
 
 
+@highp()
+def spd_solve_approx(S: torch.Tensor, b: torch.Tensor, *, iters: int = 10,
+                     refine: int = 2,
+                     X0: torch.Tensor | None = None) -> torch.Tensor:
+    """Approximate SPD solve S z = b (b: (..., C)): the bf16 Newton-Schulz
+    inverse, then ``refine`` f32 refinement passes against S."""
+    Xf = spd_ns_inverse(S, X0, iters=iters)
+    z = (Xf @ b[..., None])[..., 0]
+    for _ in range(refine):
+        r = b - (S @ z[..., None])[..., 0]
+        z = z + (Xf @ r[..., None])[..., 0]
+    return z
+
+
 # ---------------------------------------------------------------------------
 # Factor / apply
 # ---------------------------------------------------------------------------
@@ -195,18 +299,6 @@ class BTFactors(NamedTuple):
 def bt_warm_state(fac: BTFactors) -> Tuple:
     """Warm-start state: (per-level inverses, tail inverse)."""
     return (tuple(lvl[0] for lvl in fac.levels), fac.tail_Hinv)
-
-
-def _dense_tail_H(A, B):
-    """Assemble the small dense tail system (Fl*m, Fl*m)."""
-    Fl, m = A.shape[0], A.shape[1]
-    H = A.new_zeros((Fl, m, Fl, m))
-    idx = torch.arange(Fl, device=A.device)
-    H[idx, :, idx, :] = A
-    if Fl > 1:
-        H[idx[:-1], :, idx[:-1] + 1, :] = B
-        H[idx[:-1] + 1, :, idx[:-1], :] = B.mT
-    return H.reshape(Fl * m, Fl * m)
 
 
 @highp()
@@ -257,7 +349,7 @@ def bt_factor(A: torch.Tensor, B: torch.Tensor, *, direct_threshold: int = 8,
         levels.append((Ainv, B_left, B_right, W_l, W_r))
         A, B = A_new, B_new
 
-    H_tail = _dense_tail_H(A, B)
+    H_tail = _tridiag_dense(A, B)
     if warm is not None:
         tail_Hinv = ns_inverse_warm(H_tail, warm[1], warm_iters)
     else:
@@ -322,3 +414,18 @@ def bt_matvec(A: torch.Tensor, B: torch.Tensor, x: torch.Tensor
         y = y + torch.cat([B @ x[1:], torch.zeros_like(x[:1])], 0)
         y = y + torch.cat([torch.zeros_like(x[:1]), B.mT @ x[:-1]], 0)
     return y
+
+
+@highp()
+def bt_solve_ns(A: torch.Tensor, B: torch.Tensor, rhs: torch.Tensor, *,
+                direct_threshold: int = 8, ns_iters: int = 12,
+                refine: int = 1) -> torch.Tensor:
+    """Matmul-only block-tridiagonal solve: the Newton-Schulz factor, one
+    apply and ``refine`` residual-correction passes against the exact
+    ``bt_matvec``. Same contract as ``bt_solve``."""
+    fac = bt_factor(A, B, direct_threshold=direct_threshold,
+                    ns_iters=ns_iters)
+    x = bt_apply(fac, rhs)
+    for _ in range(refine):
+        x = x + bt_apply(fac, rhs - bt_matvec(A, B, x))
+    return x

@@ -48,8 +48,46 @@ def test_lm_solve_bt_matches_jax(problem, pack, fused, per_iter):
     assert tfl.fused_reduction_level_ref.calls - calls == per_iter * ITERS
 
 
-def test_unported_linear_paths_raise(problem):
+@pytest.mark.parametrize("kw", [dict(exact_linear=True), dict(linear="pcg")],
+                         ids=["exact", "pcg"])
+def test_lm_solve_bt_linear_paths_match_jax(problem, kw):
+    """The exact-Woodbury and the PCG paths against the reference's, and
+    PCG within the reference test's bars of the Woodbury solve
+    (tests/test_bt_lm.py:87-99): cost within 5e-3, relative ATE < 0.02."""
     data, graph = problem
-    for kw in (dict(linear="pcg"), dict(exact_linear=True)):
-        with pytest.raises(NotImplementedError):
-            tdense.lm_solve_bt(graph, data.vio, device="cpu", **kw)
+    ref = jdense.lm_solve_bt(graph, jnp.asarray(data.vio, jnp.float32),
+                             max_iterations=50, **kw)
+    got = tdense.lm_solve_bt(graph, data.vio, device="cpu",
+                             max_iterations=50, **kw)
+    assert np.isfinite(float(got.cost))
+    np.testing.assert_allclose(float(got.initial_cost),
+                               float(ref.initial_cost), rtol=1e-5)
+    np.testing.assert_allclose(float(got.cost), float(ref.cost), rtol=1e-3)
+    poses = got.poses.numpy()
+    assert tmetrics.mean_relative_ate(poses, np.asarray(ref.poses)) < 5e-3
+    assert tmetrics.mean_relative_ate(poses, data.gt) < 0.08
+    smw = tdense.lm_solve_bt(graph, data.vio, device="cpu",
+                             max_iterations=50, linear="smw")
+    np.testing.assert_allclose(float(got.cost), float(smw.cost), rtol=5e-3)
+    assert tmetrics.mean_relative_ate(poses, smw.poses.numpy()) < 0.02
+
+
+def test_linear_auto_rule(problem, monkeypatch):
+    """"auto" takes PCG once 4L > 4096 (here 1,025 loop slots), never with
+    exact_linear, and the Woodbury path below that."""
+    data, _ = problem
+    big = jdense.dense_graph_from_sim(data, max_loops=1025)
+    calls = []
+    for name in ("_pcg_solve_core", "_smw_solve_core"):
+        fn = getattr(tdense, name)
+        monkeypatch.setattr(tdense, name, lambda *a, _fn=fn, _n=name, **k: (
+            calls.append(_n), _fn(*a, **k))[1])
+    kw = dict(device="cpu", max_iterations=2, cg_iters=3)
+    tdense.lm_solve_bt(big, data.vio, **kw)
+    assert set(calls) == {"_pcg_solve_core"}
+    calls.clear()
+    tdense.lm_solve_bt(big, data.vio, exact_linear=True, **kw)
+    assert set(calls) == {"_smw_solve_core"}
+    calls.clear()
+    tdense.lm_solve_bt(problem[1], data.vio, **kw)
+    assert set(calls) == {"_smw_solve_core"}

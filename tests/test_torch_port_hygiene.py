@@ -30,6 +30,8 @@ def test_port_files_exist():
                  "omniswarm_torch/solver/fused_level.py",
                  "omniswarm_torch/kernels.py",
                  "omniswarm_torch/frontend_entry.py",
+                 "omniswarm_torch/solver/gauss_newton.py",
+                 "omniswarm_torch/sim/pipeline.py",
                  "omniswarm_torch/ops/frontend_kernels.py"):
         assert want in names
     for cu in ("fused_level", "grid_nms", "retrieval_top1"):
@@ -61,6 +63,26 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     data = sim.generate(sim.SimParams(num_drones=2, num_frames=4, seed=0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_solve_bt(jdense.dense_graph_from_sim(data), data.vio)
+
+
+def test_solver_entry_points_raise_without_cuda(monkeypatch):
+    from omniswarm_torch.sim.pipeline import build_graph_from_sim
+    from omniswarm_torch.solver import dense as tdense
+    from omniswarm_torch.solver import gauss_newton as tgn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = sim.generate(sim.SimParams(num_drones=2, num_frames=4, seed=0))
+    dg = jdense.dense_graph_from_sim(data)
+    fg, init = build_graph_from_sim(data)
+    batch = np.stack([init, init])
+    for call in (lambda: tdense.lm_solve_dense(dg, init),
+                 lambda: tdense.lm_solve_dense_batched(dg, batch),
+                 lambda: tdense.lm_solve_bt_batched(dg, batch),
+                 lambda: tdense.pose_covariances(dg, init, [[0, 1]]),
+                 lambda: tgn.lm_solve(fg, init),
+                 lambda: tgn.lm_solve_multi_init(fg, batch)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_frontend_entry_raises_without_cuda(monkeypatch):
