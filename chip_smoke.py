@@ -71,8 +71,30 @@ non-zero without printing a result.
    inverse-range landmark sums and global-descriptor projection within
    frontend_entry.checksum_faults's tolerances, at least 95% of the 75
    top-1 indices equal, the top-1 precision within 0.02.
+7a. Estimator path: omniswarm_torch.estimator_entry.estimator_entry(), a
+   SwarmEstimator serving a 5-drone flight of 150 frames (seed 0, 20% loop
+   outliers), a solve every 10th frame (15 solves; the window fills to 100
+   keyframes, then evicts at random), max_solver_time 0. The held session
+   (acpt_cost 1000: every solve after the first is warm) is held to the JAX
+   package's CPU anchors in ESTIMATOR_ANCHORS (tools/estimator_anchors.py):
+   each solve's window, finish_init, PCM inlier sets and linear path equal,
+   cost within 1% (up to and including a solve whose anchor cost lies within
+   1% of acpt_cost, a tie: after it only the bars), final relative ATE
+   <= 0.08 and within 0.01 of its anchor, each drone's newest covariance
+   diagonal within rtol 0.05, atol 5e-4; every prediction finite, the self
+   drone at the origin; K1 launched (its level shapes not covered by the K1
+   phase checked against the plain version after the run). A second held
+   session must give bit-equal costs and estimate. Then the deployed session
+   (acpt_cost 100, as shipped), held to bars: finite costs, finish_init
+   false after each solve above the gate and the next solve a multi-init,
+   every multi-init result at relative ATE <= 0.08, predictions finite; it
+   prints each solve's path and the iteration budget max_solver_time 0.5
+   would give. One JSON line with host and device ms (medians, warm and
+   multi-init), PCM launch-to-finish ms, predict_swarm_relative us per
+   call, each solve's linear path and K1's launches.
 8. One JSON line with the solver paths' numbers, one with the kernels'
-   numbers, then the result line.
+   numbers (K1's launches on the estimator path as launches_estimator), then
+   the result line.
 """
 from __future__ import annotations
 
@@ -243,6 +265,231 @@ FE_ANCHORS = dict(
              0.004699, 0.0028713, 0.0028951, 0.00221, 0.0028499, -0.0001949,
              0.0038631, 0.0016111, -6.7e-05),
 )
+# The estimator path's anchors, from the JAX package on the CPU
+# (PYTHONPATH=. JAX_PLATFORMS=cpu python tools/estimator_anchors.py): the
+# held session (acpt_cost 1000) solve by solve, then the final relative ATE
+# and the covariance diagonals of each drone's newest pose.
+ESTIMATOR_ANCHORS = dict(
+    acpt_cost=1000.0,
+    solves=[
+        dict(
+            frames=[[0, 9]],
+            finish_init=True,
+            cost=13.269008,
+            cost_over_acpt=0.013269,
+            inliers={'0-4': [1, 'ebd496a6aebb']},
+            linear='smw',
+            pack=1,
+            lanes=4,
+        ),
+        dict(
+            frames=[[0, 19]],
+            finish_init=True,
+            cost=30.567295,
+            cost_over_acpt=0.030567,
+            inliers={'0-0': [1, '6318e8aa3fb0'],
+                     '0-2': [1, '8fabe60cb844'],
+                     '0-3': [1, '8383837ddfb6'],
+                     '0-4': [1, 'ebd496a6aebb']},
+            linear='smw',
+            pack=1,
+            lanes=None,
+        ),
+        dict(
+            frames=[[0, 29]],
+            finish_init=True,
+            cost=43.626095,
+            cost_over_acpt=0.043626,
+            inliers={'0-0': [3, 'd25a421c7320'],
+                     '0-2': [1, '8fabe60cb844'],
+                     '0-3': [1, '8383837ddfb6'],
+                     '0-4': [1, 'ebd496a6aebb']},
+            linear='smw',
+            pack=1,
+            lanes=None,
+        ),
+        dict(
+            frames=[[0, 39]],
+            finish_init=True,
+            cost=122.131393,
+            cost_over_acpt=0.122131,
+            inliers={'0-0': [5, '0c9255830011'],
+                     '0-2': [1, '8fabe60cb844'],
+                     '0-3': [2, '407ddaf9e76a'],
+                     '0-4': [1, 'ebd496a6aebb']},
+            linear='smw',
+            pack=1,
+            lanes=None,
+        ),
+        dict(
+            frames=[[0, 49]],
+            finish_init=True,
+            cost=143.330627,
+            cost_over_acpt=0.143331,
+            inliers={'0-0': [6, '90fd2af07926'],
+                     '0-2': [1, '8fabe60cb844'],
+                     '0-3': [2, '407ddaf9e76a'],
+                     '0-4': [1, 'ebd496a6aebb']},
+            linear='smw',
+            pack=1,
+            lanes=None,
+        ),
+        dict(
+            frames=[[0, 59]],
+            finish_init=True,
+            cost=160.611511,
+            cost_over_acpt=0.160612,
+            inliers={'0-0': [8, 'f85599b55c2d'],
+                     '0-2': [1, '8fabe60cb844'],
+                     '0-3': [2, '407ddaf9e76a'],
+                     '0-4': [1, 'ebd496a6aebb']},
+            linear='smw',
+            pack=1,
+            lanes=None,
+        ),
+        dict(
+            frames=[[0, 69]],
+            finish_init=True,
+            cost=180.653656,
+            cost_over_acpt=0.180654,
+            inliers={'0-0': [9, '70c24ce62849'],
+                     '0-2': [1, '8fabe60cb844'],
+                     '0-3': [3, '5ff2fe312452'],
+                     '0-4': [1, 'ebd496a6aebb']},
+            linear='smw',
+            pack=1,
+            lanes=None,
+        ),
+        dict(
+            frames=[[0, 79]],
+            finish_init=True,
+            cost=200.377213,
+            cost_over_acpt=0.200377,
+            inliers={'0-0': [9, '70c24ce62849'],
+                     '0-2': [2, '7241e8805a30'],
+                     '0-3': [3, '5ff2fe312452'],
+                     '0-4': [1, 'ebd496a6aebb']},
+            linear='smw',
+            pack=1,
+            lanes=None,
+        ),
+        dict(
+            frames=[[0, 89]],
+            finish_init=True,
+            cost=219.524734,
+            cost_over_acpt=0.219525,
+            inliers={'0-0': [10, '8a6621f23d62'],
+                     '0-2': [2, '7241e8805a30'],
+                     '0-3': [3, '5ff2fe312452'],
+                     '0-4': [1, 'ebd496a6aebb']},
+            linear='smw',
+            pack=2,
+            lanes=None,
+        ),
+        dict(
+            frames=[[0, 99]],
+            finish_init=True,
+            cost=233.990997,
+            cost_over_acpt=0.233991,
+            inliers={'0-0': [12, '9b10496af8e9'],
+                     '0-2': [2, '7241e8805a30'],
+                     '0-3': [3, '5ff2fe312452'],
+                     '0-4': [1, 'ebd496a6aebb']},
+            linear='smw',
+            pack=2,
+            lanes=None,
+        ),
+        dict(
+            frames=[[0, 2], [4, 12], [14, 14], [16, 19], [21, 23], [25, 30],
+                    [32, 35], [37, 38], [40, 49], [51, 73], [75, 109]],
+            finish_init=True,
+            cost=212.905289,
+            cost_over_acpt=0.212905,
+            inliers={'0-0': [6, '2c1689fd1164'],
+                     '0-2': [2, '7241e8805a30'],
+                     '0-3': [3, '5ff2fe312452'],
+                     '0-4': [1, 'ebd496a6aebb']},
+            linear='pcg',
+            pack=2,
+            lanes=None,
+        ),
+        dict(
+            frames=[[0, 2], [4, 10], [16, 19], [21, 21], [23, 23], [25, 30],
+                    [32, 35], [37, 38], [40, 47], [51, 56], [58, 61], [63, 73],
+                    [75, 76], [78, 83], [85, 119]],
+            finish_init=True,
+            cost=210.693726,
+            cost_over_acpt=0.210694,
+            inliers={'0-0': [7, '2008b1a6fadf'],
+                     '0-2': [2, '7241e8805a30'],
+                     '0-3': [2, '407ddaf9e76a'],
+                     '0-4': [1, 'ebd496a6aebb']},
+            linear='pcg',
+            pack=2,
+            lanes=None,
+        ),
+        dict(
+            frames=[[0, 2], [4, 10], [16, 17], [19, 19], [21, 21], [23, 23],
+                    [25, 27], [29, 30], [32, 32], [34, 35], [37, 38], [40, 44],
+                    [46, 47], [51, 51], [54, 56], [59, 61], [63, 73], [75, 76],
+                    [78, 83], [85, 89], [91, 93], [95, 98], [100, 129]],
+            finish_init=True,
+            cost=213.825714,
+            cost_over_acpt=0.213826,
+            inliers={'0-0': [5, '20fbd0aaab17'],
+                     '0-2': [2, '7241e8805a30'],
+                     '0-3': [2, '407ddaf9e76a'],
+                     '0-4': [1, 'ebd496a6aebb']},
+            linear='pcg',
+            pack=2,
+            lanes=None,
+        ),
+        dict(
+            frames=[[1, 1], [5, 10], [16, 17], [19, 19], [21, 21], [23, 23],
+                    [25, 25], [29, 30], [32, 32], [34, 35], [37, 38], [40, 43],
+                    [46, 47], [51, 51], [54, 54], [56, 56], [59, 61], [64, 73],
+                    [75, 76], [78, 78], [80, 83], [85, 89], [91, 93], [95, 95],
+                    [97, 98], [100, 139]],
+            finish_init=True,
+            cost=204.059143,
+            cost_over_acpt=0.204059,
+            inliers={'0-0': [3, '341c9f193f29'],
+                     '0-2': [1, '7909b24da039'],
+                     '0-3': [1, '8383837ddfb6'],
+                     '0-4': [1, 'ebd496a6aebb']},
+            linear='pcg',
+            pack=2,
+            lanes=None,
+        ),
+        dict(
+            frames=[[1, 1], [6, 10], [16, 17], [19, 19], [21, 21], [23, 23],
+                    [25, 25], [29, 30], [32, 32], [35, 35], [37, 38], [41, 43],
+                    [46, 47], [54, 54], [56, 56], [59, 61], [64, 71], [73, 73],
+                    [75, 76], [78, 78], [80, 82], [85, 89], [91, 91], [93, 93],
+                    [95, 95], [97, 98], [100, 103], [105, 107], [109, 118],
+                    [120, 149]],
+            finish_init=True,
+            cost=193.932724,
+            cost_over_acpt=0.193933,
+            inliers={'0-0': [4, '55e1ec653f53'], '0-2': [1, '7909b24da039']},
+            linear='pcg',
+            pack=2,
+            lanes=None,
+        ),
+    ],
+    relative_ate=0.055276,
+    cov_diag={'0': [0.039339349, 0.027826173, 0.034167178, 0.0013795],
+              '1': [0.028355613, 0.02518354, 0.029769404, 0.001363359],
+              '2': [0.041616686, 0.026375439, 0.032375801, 0.001360981],
+              '3': [0.032842066, 0.025331721, 0.028284132, 0.001168629],
+              '4': [0.049393967, 0.040781032, 0.031027215, 0.001373572]},
+)
+EST_COST_RTOL = 0.01        # one flipped accept
+EST_TIE = 0.01              # an anchor cost this close to acpt_cost is a tie
+EST_ATE_BAR = 0.08          # the reference's relative-ATE bar at 5 x 100
+EST_ATE_TOL = 0.01          # final relative ATE against its anchor
+EST_COV_RTOL, EST_COV_ATOL = 0.05, 5e-4
+EST_DEPLOYED_ACPT = 100.0   # the shipped acpt_cost
 FE_IDX_SHARE = 0.95         # top-1 indices equal to the anchors
 FE_PRECISION_ATOL = 0.02
 FE_STEPS = 15
@@ -871,7 +1118,193 @@ def frontend_phase():
     return out
 
 
+def estimator_checks_k1(levels) -> list:
+    """K1 at each level shape the estimator path launched that the kernel
+    phase did not check, on all three branches, against its plain version
+    (these launches are not counted on the path)."""
+    import torch
+
+    from omniswarm_torch.benchutil import (SOLVE_LEVELS, check_level,
+                                           random_level)
+    from omniswarm_torch.core.precision import highp
+
+    seen = {(m, t) for _, m, ts in SOLVE_LEVELS for t in ts}
+    seen |= set(K1_ODD_SHAPES)
+    rng = np.random.default_rng(1)
+    rows = []
+    with highp():
+        for m, t in sorted(set(levels) - seen):
+            for branch in K1_BRANCHES:
+                A, B, X0 = (torch.from_numpy(v).cuda()
+                            for v in random_level(rng, 2 * t, m, branch))
+                rows.append(dict(m=m, t=t, branch=branch,
+                                 max_abs_err=check_level(A, B, X0)))
+    return rows
+
+
+def held_session(run: dict, name: str) -> None:
+    """The held session against ESTIMATOR_ANCHORS: windows, finish_init and
+    inlier sets equal up to and including a threshold tie (then only the
+    bars), costs within 1%, final relative ATE and covariances."""
+    from omniswarm_torch.estimator_entry import frame_runs
+
+    a = ESTIMATOR_ANCHORS
+    solves = run["solves"]
+    check(len(solves) == len(a["solves"]),
+          f"{name}: {len(solves)} solves, anchors {len(a['solves'])}")
+    ties = [i for i, w in enumerate(a["solves"])
+            if abs(w["cost_over_acpt"] - 1.0) <= EST_TIE]
+    last = ties[0] if ties else len(solves) - 1
+    for i, (got, want) in enumerate(zip(solves, a["solves"])):
+        check(math.isfinite(got["cost"]), f"{name} solve {i}: cost "
+              f"{got['cost']}")
+        if i > last:
+            continue
+        check(frame_runs(got["frames"]) == want["frames"],
+              f"{name} solve {i}: window {frame_runs(got['frames'])} vs "
+              f"{want['frames']}")
+        check(got["finish_init"] == want["finish_init"],
+              f"{name} solve {i}: finish_init {got['finish_init']}")
+        check(got["inliers"] == want["inliers"], f"{name} solve {i}: PCM "
+              f"inliers {got['inliers']} vs {want['inliers']}")
+        check((got["linear"], got["pack"], got["lanes"]) == (
+            want["linear"], want["pack"], want["lanes"]),
+            f"{name} solve {i}: path {got['linear']} pack {got['pack']} "
+            f"lanes {got['lanes']}")
+        if i < last or not ties:
+            held(f"{name} solve {i} cost", got["cost"], want["cost"],
+                 rtol=EST_COST_RTOL)
+    final = run["final"]
+    ate = final["relative_ate"]
+    check(ate is not None and ate <= EST_ATE_BAR
+          and abs(ate - a["relative_ate"]) <= EST_ATE_TOL,
+          f"{name}: final relative ATE {ate} (anchor {a['relative_ate']})")
+    if not ties:
+        diag = {int(d): v for d, v in final["cov_diag"].items()}
+        for d, want in a["cov_diag"].items():
+            got = np.asarray(diag[int(d)])
+            excess = np.abs(got - want) - (EST_COV_ATOL
+                                           + EST_COV_RTOL * np.abs(want))
+            check(bool((excess <= 0).all()), f"{name}: covariance diagonal "
+                  f"of drone {d} {got.tolist()} vs anchor {want}")
+    p = run["predictions"]
+    check(p["count"] > 0 and p["finite"] and p["self_max_abs"] <= 1e-6,
+          f"{name}: predictions {p}")
+
+
+def deployed_session(run: dict) -> None:
+    """The shipped gate (acpt_cost 100), held to bars: finite costs,
+    finish_init false after the first solve above the gate (and the next
+    solve a multi-init), every multi-init solve's result at relative ATE
+    within the bar, finite predictions."""
+    solves = run["solves"]
+    for i, s in enumerate(solves):
+        check(math.isfinite(s["cost"]), f"deployed solve {i}: cost "
+              f"{s['cost']}")
+        check(s["finish_init"] == (s["cost"] < EST_DEPLOYED_ACPT),
+              f"deployed solve {i}: cost {s['cost']} finish_init "
+              f"{s['finish_init']}")
+        if i:
+            check(s["multi_init"] == (not solves[i - 1]["finish_init"]),
+                  f"deployed solve {i}: multi_init {s['multi_init']}")
+        if s["multi_init"]:
+            check(s["result_ate"] <= EST_ATE_BAR, f"deployed solve {i}: "
+                  f"re-init relative ATE {s['result_ate']}")
+    check(any(s["cost"] >= EST_DEPLOYED_ACPT for s in solves),
+          "no deployed solve went above the gate")
+    p = run["predictions"]
+    check(p["count"] > 0 and p["finite"], f"deployed predictions {p}")
+
+
+def estimator_phase() -> dict:
+    """Phase 7a: the estimator path (see the docstring)."""
+    from omniswarm_torch.estimator_entry import estimator_entry
+    from omniswarm_torch.solver.fused_level import (
+        fused_reduction_level, fused_reduction_level_ref)
+    from omniswarm_torch.utils.telemetry import GLOBAL
+
+    t0 = time.perf_counter()
+    acpt = ESTIMATOR_ANCHORS["acpt_cost"]
+    pcm0 = GLOBAL.timer("pcm.launch_to_finish")
+    pcm0 = (pcm0.count, pcm0.total_ms)
+    with k1_recording() as levels:
+        run = estimator_entry(device="cuda", acpt_cost=acpt)
+    launches = fused_reduction_level.launches
+    check(fused_reduction_level_ref.calls == 0,
+          "the plain level ran on the estimator path")
+    pcm1 = GLOBAL.timer("pcm.launch_to_finish")
+    pcm_ms = ((pcm1.total_ms - pcm0[1]) / (pcm1.count - pcm0[0])
+              if pcm1.count > pcm0[0] else None)
+    for i, s in enumerate(run["solves"]):
+        print(f"estimator held solve {i}: {len(s['frames'])} keyframes "
+              f"F={s['F']} {'multi-init' if s['multi_init'] else 'warm'} "
+              f"lanes {s['lanes']} {s['linear']} pack {s['pack']} cost "
+              f"{s['cost']!r} iterations {s['iterations']} finish_init "
+              f"{s['finish_init']} host {s['host_ms']:.1f} ms device "
+              f"{s['device_ms']:.1f} ms K1 {s['k1_launches']}", flush=True)
+    print(f"estimator held session: relative ATE "
+          f"{run['final']['relative_ate']!r} predictions "
+          f"{run['predictions']} K1 launches {launches} at "
+          f"{dict(levels)}", flush=True)
+    held_session(run, "held session")
+    check(launches > 0, "K1 never launched on the estimator path")
+    checked = estimator_checks_k1(levels)
+
+    again = estimator_entry(device="cuda", acpt_cost=acpt)
+    same = ([s["cost"] for s in again["solves"]]
+            == [s["cost"] for s in run["solves"]]
+            and np.array_equal(again["estimate"], run["estimate"]))
+    print(f"estimator held session again: bit-equal {same}", flush=True)
+    check(same, "two held sessions differ: costs "
+          f"{[s['cost'] for s in run['solves']]} and "
+          f"{[s['cost'] for s in again['solves']]}")
+
+    t1 = time.perf_counter()
+    deployed = estimator_entry(device="cuda", acpt_cost=EST_DEPLOYED_ACPT)
+    deployed_s = time.perf_counter() - t1
+    for i, s in enumerate(deployed["solves"]):
+        print(f"estimator deployed solve {i}: "
+              f"{'multi-init' if s['multi_init'] else 'warm'} lanes "
+              f"{s['lanes']} {s['linear']} pack {s['pack']} cost "
+              f"{s['cost']!r} iterations {s['iterations']} finish_init "
+              f"{s['finish_init']} result ATE {s['result_ate']:.5f} "
+              f"{s['host_ms'] + s['device_ms']:.1f} ms", flush=True)
+    ema = deployed["iter_ms_ema"]
+    budget = None
+    if ema:
+        budget = min(60, max(25, (int(0.5e3 / max(ema, 1e-3)) // 25) * 25))
+    print(f"estimator deployed session {deployed_s:.1f} s: per-iteration "
+          f"ms (EMA) {ema!r}, so max_solver_time=0.5 would allow {budget} "
+          f"iterations", flush=True)
+    deployed_session(deployed)
+
+    def split(key):
+        solves = run["solves"] + deployed["solves"]
+        return {kind: (float(np.median([s[key] for s in solves
+                                        if s["multi_init"] == multi]))
+                       if any(s["multi_init"] == multi for s in solves)
+                       else None)
+                for kind, multi in (("warm", False), ("multi_init", True))}
+
+    out = dict(
+        host_ms_median=split("host_ms"), device_ms_median=split("device_ms"),
+        pcm_launch_to_finish_ms_mean=pcm_ms,
+        predict_us_median=run["predictions"]["us_median"],
+        paths=[[s["linear"], s["pack"], s["lanes"]] for s in run["solves"]],
+        deployed_paths=[[s["linear"], s["pack"], s["lanes"]]
+                        for s in deployed["solves"]],
+        k1_launches=launches,
+        k1_levels=[[m, t, n] for (m, t), n in sorted(levels.items())],
+        k1_checked=checked, relative_ate=run["final"]["relative_ate"],
+        deployed_costs=[s["cost"] for s in deployed["solves"]],
+        deployed_iter_ms_ema=ema, deployed_budget_iterations=budget,
+        seconds=time.perf_counter() - t0)
+    print("estimator path", json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
+    start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -930,6 +1363,8 @@ def main() -> int:
     fe = frontend_phase()
     print(f"front-end path phase {time.perf_counter() - t0:.1f} s",
           flush=True)
+    est = estimator_phase()
+    print(f"estimator path phase {est['seconds']:.1f} s", flush=True)
 
     main = next(r for r in rows
                 if (r["m"], r["t"], r["branch"]) == (40, 32, "warm"))
@@ -942,7 +1377,8 @@ def main() -> int:
         "replaces": "omniswarm_tpu/solver/pallas_level.py:89 "
                     "fused_reduction_level",
         "launches": paths[100]["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows + k1_checked),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + k1_checked
+                           + est["k1_checked"]),
         "ms": main["ms"],
         "kernel_ms": main["ms"],
         "wrapper_ms": main["wrapper_ms"],
@@ -952,8 +1388,9 @@ def main() -> int:
         "library_ms": None,
         "launches_f1024": paths[1024]["launches"],
         "launches_pcg_f1024": solver["pcg"]["launches"],
+        "launches_estimator": est["k1_launches"],
         "shapes": rows,
-        "checked": k1_checked,
+        "checked": k1_checked + est["k1_checked"],
         "per_iteration": k1_per_iteration,
         "main_paths": list(paths.values()),
     }, {
@@ -988,6 +1425,7 @@ def main() -> int:
         "frontend_path": fe,
     }]}
     print("solver paths", json.dumps(solver), flush=True)
+    print(f"chip_smoke {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

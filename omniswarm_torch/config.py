@@ -1,13 +1,114 @@
-"""Front-end configuration of the port.
+"""Configuration dataclasses of the port.
 
-The fields of ``FrontendParams`` in ``omniswarm_tpu/config.py`` (:116-195)
-that the keyframe path reads, with the reference's defaults, so that the
-port needs no JAX package at run time. The detector's fields (RANSAC, PnP,
-loop acceptance, batched verification) come with the code that reads them.
+A copy of ``omniswarm_tpu/config.py``, so that the port needs no JAX package
+at run time: the solver knobs (``SolverParams``, :21-114), the visual
+front-end's (``FrontendParams``, :116-195), the per-node capability and
+calibration table (``NodeConfig``, :198-210) and ``SwarmConfig`` with its
+YAML round trip (:213-262). Every field keeps the reference's default.
+``yaml`` is imported inside the two methods only: nothing on the card's
+path needs PyYAML.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Dict, Tuple
+
+
+@dataclass
+class SolverParams:
+    """Back-end sliding-window solver parameters.
+
+    Defaults follow loop-5-drone.launch:34-60 where it overrides the code
+    defaults of swarm_localization_node.cpp:463-517.
+    """
+
+    # Window management (node.cpp:465-472)
+    max_frame_number: int = 100
+    min_frame_number: int = 1
+    dense_frame_number: int = 20
+    kf_movement: float = 0.5            # min_kf_movement
+    kf_time_with_half_movement: float = 1.0
+    enable_random_keyframe_deletion: bool = True
+    kf_use_all_nodes: bool = False
+
+    # Static-shape capacities of the masked problem (TPU-specific; no
+    # reference analog — the reference reallocs dynamically).
+    max_drones: int = 10
+    max_range_factors: int = 4096
+    max_odom_factors: int = 1024
+    max_loop_factors: int = 1024
+    max_det_factors: int = 1024
+
+    # Initialization (node.cpp:473-474)
+    init_xy_movement: float = 1.5
+    init_z_movement: float = 0.8
+    acpt_cost: float = 100.0            # max_accept_cost
+    init_random_trials: int = 3         # solve_with_multiple_init trials (solver.cpp:781)
+
+    # Optimizer budget (node.cpp:504, loop-5-drone.launch:36-38)
+    max_solver_time: float = 0.5
+    max_iterations: int = 100
+    force_freq: float = 1.0
+    predict_freq: float = 10.0
+
+    # Noise models (loop-5-drone.launch:49-54)
+    vo_cov_pos_per_meter: float = 0.002
+    vo_cov_yaw_per_meter: float = 0.0001
+    distance_measurement_cov: float = 0.02
+    detection_sphere_std: float = 0.1
+    detection_inv_dep_std: float = 0.5
+
+    # Measurement gating (node.cpp:483-506)
+    loop_outlier_distance_threshold: float = 2.0
+    det_dpos_thres: float = 1.0
+    distance_outlier_threshold: float = 0.3
+    distance_outlier_elevation_threshold: float = 0.5
+    minimum_distance: float = 0.2
+
+    # Robustness
+    pcm_thres: float = 0.6              # reference's 6-DoF scale (parity)
+    pcm_thres_4dof: float = 9.49        # chi2(0.95, df=4) on our 4-DoF smd
+    pcm_enable: bool = True
+    pcm_redundant: bool = False
+    da_accept_thres: float = 3.345
+    enable_data_association: bool = False
+    huber_delta: float = 1.0            # HuberLoss(1.0), solver.cpp:1080
+
+    # Observability conditioning: a drone's own in-window xy motion
+    # unlocks yaw observability (THRES_YAW_OBSER_XY, solver.cpp:49,
+    # :1413-1420); drones position-solvable only through motion-init get
+    # their yaw column frozen (the reference instead relies on its yaw
+    # gate :1066-1068 + damping; the masked grid freezes explicitly).
+    yaw_observable_xy_thres: float = 1.0
+    # Redundant-range pruning between mutually non-moving frames
+    # (cutting_edges, solver.cpp:1225-1296). The shipped reference marks
+    # every edge enabled (the pruning body is commented out at
+    # :1266-1291), so parity default is off.
+    cutting_edges: bool = False
+    not_moving_thres: float = 0.02      # NOT_MOVING_THRES, solver.cpp:46
+
+    # Feature switches (node.cpp:488-497)
+    enable_detection: bool = True
+    enable_loop: bool = True
+    enable_distance: bool = True
+    enable_detection_depth: bool = True
+
+    # Output: attach per-drone marginal pose covariance to every fused
+    # solve result (the reference publishes covariance with each fused
+    # output, swarm_localization_node.cpp:207-422)
+    publish_covariance: bool = True
+
+    # Vectorized direct-to-dense window assembly (swarm/fastbuild.py);
+    # False forces the generic python build (debug/fallback comparison)
+    fast_build: bool = True
+
+    # Debug ablations (params.hpp:38-50)
+    debug_no_rejection: bool = False
+    debug_loop_initial_only: bool = False
+    debug_no_relocalization: bool = False
+
+    self_id: int = 0
 
 
 @dataclass
@@ -24,8 +125,136 @@ class FrontendParams:
     superpoint_thres: float = 0.012
     nms_dist: int = 4                   # NMS2 grid suppression radius
     local_desc_dim: int = 64            # FEATURE_DESC_SIZE (PCA of 256)
+    raw_desc_dim: int = 256
     global_desc_dim: int = 4096         # DEEP_DESC_SIZE (NetVLAD)
     netvlad_thres: float = 0.3          # inner-product loop candidate thres
+    # init-mode (inter-drone, pair not yet initialized) relaxed gates:
+    # query_thres=0.6 vs init_query_thres=0.3 and MIN_LOOP_NUM=15 vs
+    # INIT_MODE_MIN_LOOP_NUM=10 in the reference (swarm_loop.cpp:221-238)
+    netvlad_init_thres: float = 0.15
+    min_loop_matches_init: int = 10
+    search_nearest_num: int = 5         # SEARCH_NEAREST_NUM top-k candidates
     match_index_dist: int = 10          # recency guard MATCH_INDEX_DIST
+    min_loop_matches: int = 15          # MIN_LOOP_NUM inliers
+    inter_drone_init_frames: int = 2
+    min_movement_keyframe: float = 0.3
+    max_freq: float = 1.0
+    # non-keyframe acceptance (VIOnonKF_callback, swarm_loop.cpp:124-138):
+    # match-only frames after this long without a keyframe
+    nonkeyframe_waitsec: float = 5.0
+    init_nonkeyframe_waitsec: float = 1.0
+    # homography-RANSAC match pre-filter (loop_detector.cpp:539-624,
+    # cv::findHomography(..., CV_RANSAC, 3, mask))
+    homography_prefilter: bool = True
+    homography_thresh_px: float = 3.0
+    # covariance-scaled intra-drone odometry-consistency gate
+    # (check_loop_odometry_consistency, loop_detector.cpp:295-315;
+    # defaults swarm_loop.cpp:246-248)
+    odometry_consistency_threshold: float = 2.0
+    pos_covariance_per_meter: float = 0.01
+    yaw_covariance_per_meter: float = 0.003
     triangulate_max_err: float = 0.05
+    pnp_iterations: int = 256
+    # normalized-plane RANSAC inlier threshold (radians). 0.015 ≈ 3.3 px at
+    # fx=220: a looser gate (0.03) measurably merges the near-planar PnP
+    # ambiguity basins and admits ~0.25 m biased poses on the wall world.
+    pnp_reproj_err: float = 0.015
+    loop_cov_pos: float = 0.02
+    loop_cov_ang: float = 0.01
     max_db_size: int = 4096             # place-recognition database capacity
+    accept_loop_max_yaw: float = 30.0   # deg, ACCEPT_LOOP_YAW
+    # for multi-direction (omnidirectional) rigs: gate |dyaw| modulo this
+    # period instead of absolutely (radians; 0 disables). The reference
+    # gates dyaw after rotating correspondences into the matched camera
+    # direction (loop_detector.cpp:431-537), which removes multiples of the
+    # direction spacing; the bearing-space merge needs the same allowance.
+    accept_loop_yaw_mod: float = 0.0
+    accept_loop_max_pos: float = 3.0    # m, MAX_LOOP_DIS
+    # batched candidate verification: score ALL top-k candidates in one
+    # fixed-C fused dispatch instead of the reference's one-at-a-time walk
+    # (loop_detector.cpp:203-242), and accept up to max_loops_per_query
+    # verified loops per keyframe (the walk early-exits at one, leaving
+    # revisit recall on the table — VERDICT r3 weak #5)
+    verify_batch: bool = True
+    max_loops_per_query: int = 2
+    # geometric override: accept a candidate below the NetVLAD similarity
+    # gate when PnP finds at least this many inliers (0 disables). The
+    # reference gates retrieval by similarity because verification was
+    # the expensive stage on a TX2 (loop_detector.cpp:203-242); the
+    # batched verify already scored every candidate above the floor, so
+    # geometry — the much stronger evidence — can overrule retrieval.
+    geometric_override_matches: int = 0
+    # verify BOTH databases' full top-k (2k candidate lanes) instead of
+    # the merged top-k. With D drones the remote DB is (D-1)x the local
+    # DB, so a similarity-merged top-k starves same-drone revisits under
+    # perceptual aliasing; per-DB quotas guarantee local candidates reach
+    # geometric verification (the fused tick already verifies every lane
+    # for free — only the lane count changes). verify_batch only.
+    balanced_db_candidates: bool = False
+
+
+@dataclass
+class NodeConfig:
+    """Per-drone capability/calibration entry (swarm_nodes5.yaml)."""
+
+    drone_id: int = 0
+    has_uwb: bool = True
+    has_vo: bool = True
+    has_camera: bool = True
+    is_static: bool = False
+    antenna_pos: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    # Per-peer UWB range calibration: measured = bias + scale * true
+    uwb_bias: Dict[int, float] = field(default_factory=dict)
+    uwb_scale: Dict[int, float] = field(default_factory=dict)
+
+
+@dataclass
+class SwarmConfig:
+    """Top-level config: solver + frontend + node table."""
+
+    solver: SolverParams = field(default_factory=SolverParams)
+    frontend: FrontendParams = field(default_factory=FrontendParams)
+    nodes: Dict[int, NodeConfig] = field(default_factory=dict)
+    self_id: int = 0
+
+    @staticmethod
+    def from_yaml(path: str) -> "SwarmConfig":
+        import yaml
+
+        with open(path) as f:
+            raw = yaml.safe_load(f) or {}
+        cfg = SwarmConfig()
+        for section, target in (("solver", cfg.solver), ("frontend", cfg.frontend)):
+            for k, v in (raw.get(section) or {}).items():
+                if not hasattr(target, k):
+                    raise KeyError(f"unknown {section} param: {k}")
+                setattr(target, k, v)
+        for nid, nraw in (raw.get("nodes") or {}).items():
+            node = NodeConfig(drone_id=int(nid))
+            for k, v in (nraw or {}).items():
+                if k in ("bias", "uwb_bias"):
+                    node.uwb_bias = {int(a): float(b) for a, b in v.items()}
+                elif k in ("scale", "uwb_scale"):
+                    node.uwb_scale = {int(a): float(b) for a, b in v.items()}
+                elif hasattr(node, k):
+                    setattr(node, k, tuple(v) if k == "antenna_pos" else v)
+                else:
+                    raise KeyError(f"unknown node param: {k}")
+            cfg.nodes[int(nid)] = node
+        cfg.self_id = int(raw.get("self_id", 0))
+        cfg.solver.self_id = cfg.self_id
+        return cfg
+
+    def to_yaml(self, path: str) -> None:
+        import yaml
+
+        raw = {
+            "self_id": self.self_id,
+            "solver": dataclasses.asdict(self.solver),
+            "frontend": dataclasses.asdict(self.frontend),
+            "nodes": {
+                nid: dataclasses.asdict(node) for nid, node in self.nodes.items()
+            },
+        }
+        with open(path, "w") as f:
+            yaml.safe_dump(raw, f)

@@ -1,6 +1,7 @@
 """Where the time of the flagship LM solve and of the front-end goes on the GPU.
 
     python -m omniswarm_torch.profile_solve [--frames 100 1024] [--frontend]
+                                            [--estimator]
 
 Builds the seed-0, 5-drone problem, runs one warm-up solve, then traces one
 solve of 20 LM iterations with ``torch.profiler`` (CPU and
@@ -16,11 +17,19 @@ trace, after a 2-step warm-up): wall and device-busy ms per step, the idle
 share, device ms per stage (the ``frontend/*`` profiler ranges: SuperPoint
 convolutions, keypoints with K2 and the sort, descriptor sampling and PCA,
 NetVLAD, matching, triangulation, retrieval with K3), and the top kernels.
+
+``--estimator`` runs ``estimator_entry``'s session twice, held
+(``acpt_cost=1000``) and deployed (100), and traces the last solve of each:
+a warm solve of the full window (PCG at F=104) and a 4-lane multi-init
+re-init. Per traced solve: wall, host-build and device ms (telemetry),
+iterations, device-busy ms, the idle share, kernel launches per iteration,
+K1's device ms and launches, and the top kernels.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import subprocess
 import time
@@ -177,14 +186,71 @@ def profile_frontend(top: int = 15) -> dict:
     }
 
 
+def profile_estimator(top: int = 12) -> list:
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from omniswarm_torch.estimator_entry import SESSION, estimator_entry
+
+    resolve_device("cuda")
+    estimator_entry(acpt_cost=1000.0)                # warm-up
+    out = []
+    for name, acpt in (("held, warm", 1000.0), ("deployed, multi-init",
+                                                 100.0)):
+        last = SESSION["num_frames"] // 10 - 1
+        traced = {}
+
+        @contextlib.contextmanager
+        def around(i):
+            if i != last:
+                yield
+                return
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                yield
+                torch.cuda.synchronize()
+                traced["wall_s"] = time.perf_counter() - t0
+            traced["prof"] = prof
+
+        run = estimator_entry(acpt_cost=acpt, around_solve=around)
+        s = run["solves"][last]
+        n = s["iterations"] * (s["lanes"] or 1)
+        busy_us, launches, top_kernels, per_kernel = _kernel_table(
+            traced["prof"], n, top, "lane_iteration")
+        k1 = [v for nm, v in per_kernel.items() if "fused_level_kernel" in nm]
+        wall_s = traced["wall_s"]
+        out.append({
+            "card": _card(), "path": f"estimator {name}", "solve": last,
+            "F": s["F"], "linear": s["linear"], "pack": s["pack"],
+            "lanes": s["lanes"], "iterations": s["iterations"],
+            "cost": s["cost"], "wall_ms": wall_s * 1e3,
+            "host_build_ms": s["host_ms"], "device_ms": s["device_ms"],
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
+            "kernel_launches_per_lane_iteration": launches / n,
+            "k1_fused_level_ms": sum(us for us, _ in k1) / 1e3,
+            "k1_fused_level_launches": sum(c for _, c in k1),
+            "top_kernels": top_kernels,
+        })
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, nargs="+", default=[100])
     ap.add_argument("--frontend", action="store_true",
                     help="profile the front-end path instead of the solve")
+    ap.add_argument("--estimator", action="store_true",
+                    help="profile two estimator solves instead")
     args = ap.parse_args()
     if args.frontend:
         print(json.dumps(profile_frontend()), flush=True)
+        return
+    if args.estimator:
+        for row in profile_estimator():
+            print(json.dumps(row), flush=True)
         return
     for frames in args.frames:
         print(json.dumps(profile(frames)), flush=True)

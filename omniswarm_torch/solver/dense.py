@@ -1046,6 +1046,13 @@ def _select(accept, new, old):
     return torch.where(flag, new.to(old.dtype), old)
 
 
+def uses_pcg(linear: str, exact_linear: bool, F: int, Lb: int) -> bool:
+    """Whether ``lm_solve_bt`` takes PCG: asked for, or ``"auto"`` (not
+    exact) once 4 x the loop capacity Lb or F exceeds 4096."""
+    return linear == "pcg" or (linear == "auto" and not exact_linear
+                               and (4 * Lb > 4096 or F > 4096))
+
+
 @highp()
 def lm_solve_bt(graph: DenseGraph, poses0, *, device="cuda",
                 max_iterations: int = 100, huber_delta: float = 1.0,
@@ -1075,9 +1082,7 @@ def lm_solve_bt(graph: DenseGraph, poses0, *, device="cuda",
         raise ValueError(f"unknown linear solver {linear!r}")
     graph, poses0 = _dense_problem(graph, poses0, device)
     F, D = graph.pose_valid.shape
-    Lb = graph.loops.valid.shape[0]
-    use_pcg = linear == "pcg" or (linear == "auto" and not exact_linear
-                                  and (4 * Lb > 4096 or F > 4096))
+    use_pcg = uses_pcg(linear, exact_linear, F, graph.loops.valid.shape[0])
 
     assemble = functools.partial(
         assemble_blocks, graph, huber_delta=huber_delta,

@@ -32,10 +32,22 @@ def test_port_files_exist():
                  "omniswarm_torch/frontend_entry.py",
                  "omniswarm_torch/solver/gauss_newton.py",
                  "omniswarm_torch/sim/pipeline.py",
-                 "omniswarm_torch/ops/frontend_kernels.py"):
+                 "omniswarm_torch/ops/frontend_kernels.py",
+                 "omniswarm_torch/config.py",
+                 "omniswarm_torch/core/trajectory.py",
+                 "omniswarm_torch/runtime/native.py",
+                 "omniswarm_torch/robust/pcm.py",
+                 "omniswarm_torch/robust/da_init.py",
+                 "omniswarm_torch/utils/telemetry.py",
+                 "omniswarm_torch/swarm/fastbuild.py",
+                 "omniswarm_torch/swarm/estimator.py",
+                 "omniswarm_torch/io/checkpoint.py",
+                 "omniswarm_torch/io/recorder.py",
+                 "omniswarm_torch/estimator_entry.py"):
         assert want in names
     for cu in ("fused_level", "grid_nms", "retrieval_top1"):
         assert (ROOT / f"omniswarm_torch/csrc/{cu}.cu").exists()
+    assert (ROOT / "omniswarm_torch/csrc/maxclique.cpp").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -63,6 +75,26 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     data = sim.generate(sim.SimParams(num_drones=2, num_frames=4, seed=0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_solve_bt(jdense.dense_graph_from_sim(data), data.vio)
+
+
+def test_estimator_entry_points_raise_without_cuda(monkeypatch):
+    from omniswarm_torch.estimator_entry import estimator_entry
+    from omniswarm_torch.io.checkpoint import load_estimator
+    from omniswarm_torch.robust.pcm import (loopset_from_measurements,
+                                            pcm_filter, pcm_launch_all)
+    from omniswarm_torch.swarm import SwarmEstimator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = sim.generate(sim.SimParams(num_drones=2, num_frames=12, seed=0))
+    loops = loopset_from_measurements(data.loops)
+    assert len(data.loops)
+    for call in (SwarmEstimator, estimator_entry,
+                 lambda: load_estimator("unused.npz"),
+                 lambda: pcm_filter(loops, data.vio),
+                 lambda: pcm_launch_all(loops, data.vio)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    SwarmEstimator(device="cpu")
 
 
 def test_solver_entry_points_raise_without_cuda(monkeypatch):
