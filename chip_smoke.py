@@ -92,6 +92,34 @@ non-zero without printing a result.
    would give. One JSON line with host and device ms (medians, warm and
    multi-init), PCM launch-to-finish ms, predict_swarm_relative us per
    call, each solve's linear path and K1's launches.
+9a. The demos (omniswarm_torch.demo_entry), after 7a, each run twice
+   (loop keys, costs and estimates bit-equal) and held to the JAX package's
+   CPU anchors in DEMO_ANCHORS (tools/demo_anchors.py; the random draws of
+   RANSAC differ between the packages, so a borderline loop may flip: every
+   flip is printed). The feature demo (3 drones x 30 frames over the
+   VisualWorld): the symmetric difference of the unique loop keys <= 2% of
+   the anchor's count, each drone's cost within 1% and relative ATE within
+   0.5 cm of its anchor, every drone solved. The image demo (5 drones x 30
+   frames, 75 keyframes of 4-direction stereo at 400 x 208, the 600 views
+   rendered once for both runs): every drone solved,
+   recall within 0.03 of its anchor, precision >= anchor - 0.02, post-PCM
+   precision >= anchor - 0.01, each drone's relative ATE <= anchor + 0.5 cm
+   and below raw VIO's; K2 launched once per keyframe step and no plain
+   kernel version run. Its per-drone costs are printed beside the anchors'
+   and not held: they follow the loop set, which the draws change. What the
+   draws cannot excuse is held by the detector's parity: drone 0's
+   LoopDetector on the card and on the CPU, fed the demo's keyframes at its
+   tick shapes (Qb 1 and 4, 16 lanes a query) and the same Gumbel noise
+   (drawn on the CPU, uploaded): retrieval and matches equal on every lane,
+   PnP inlier sets different on at most 3% of the live lanes, the same
+   accepted loops edge for edge, their inlier counts within 2 and dpose
+   within 0.02. The loop-key difference from the anchors is bounded at 20%
+   of their count. One "demo" JSON line: the
+   numbers held, each drone's cost and relative ATE beside its anchor's,
+   the median detector tick ms (host clock around a synchronised
+   on_keyframes_batch), verify lanes per tick, views/s, the median keyframe
+   latency, K1/K2/K3 launches (K2's and K1's also as launches_demo in the
+   kernels line) and the parity's ticks, lanes and loops.
 8. One JSON line with the solver paths' numbers, one with the kernels'
    numbers (K1's launches on the estimator path as launches_estimator), then
    the result line.
@@ -493,6 +521,159 @@ EST_DEPLOYED_ACPT = 100.0   # the shipped acpt_cost
 FE_IDX_SHARE = 0.95         # top-1 indices equal to the anchors
 FE_PRECISION_ATOL = 0.02
 FE_STEPS = 15
+# The demos' anchors, from the JAX package on the CPU (PYTHONPATH=.
+# JAX_PLATFORMS=cpu python tools/demo_anchors.py): per demo the unique loop
+# keys (pair-canonical (drone, centiseconds) of both ends), the false ones,
+# recall, precision before and after PCM, and per drone cost and relative
+# ATE (cm).
+DEMO_ANCHORS = {
+    "feature": {
+        "loop_keys": [[0, 0, 1, 1000], [0, 0, 1, 2000], [0, 200, 1, 800], [0,
+            200, 1, 1800], [0, 200, 1, 2800], [0, 400, 1, 600], [0, 400, 1,
+            1600], [0, 1000, 0, 0], [0, 1000, 1, 0], [0, 1000, 1, 1000], [0,
+            1000, 1, 2000], [0, 1200, 0, 200], [0, 1200, 1, 800], [0, 1200, 1,
+            1800], [0, 1200, 1, 2800], [0, 1400, 0, 400], [0, 1600, 0, 600],
+            [0, 1800, 0, 800], [0, 2000, 0, 1000], [0, 2000, 1, 0], [0, 2000,
+            1, 2000], [0, 2200, 0, 1200], [0, 2400, 0, 1400], [0, 2600, 0,
+            1600], [0, 2800, 0, 0], [0, 2800, 0, 1800], [1, 1000, 1, 0], [1,
+            1200, 1, 200], [1, 1400, 1, 400], [1, 1600, 1, 600], [1, 1800, 1,
+            800], [1, 2000, 1, 0], [1, 2000, 1, 1000], [1, 2200, 1, 200], [1,
+            2200, 1, 1200], [1, 2400, 1, 400], [1, 2400, 1, 1400], [1, 2600, 1,
+            600], [1, 2600, 1, 1600], [1, 2800, 1, 1800], [2, 1400, 2, 0], [2,
+            1600, 2, 200], [2, 1800, 2, 400], [2, 2000, 2, 600], [2, 2200, 2,
+            800], [2, 2400, 2, 1000], [2, 2600, 2, 0], [2, 2600, 2, 1200], [2,
+            2800, 2, 200], [2, 2800, 2, 1400]],
+        "false_keys": [],
+        "loop_recall": 0.5487804878048781,
+        "loop_precision": 1.0,
+        "loop_precision_post_pcm": 1.0,
+        "loops_unique": 50,
+        "loops_found": 77,
+        "loops_received": 136,
+        "revisit_opportunities": 82,
+        "all_solved": True,
+        "per_drone": [{'drone': 0, 'cost': 7.462320327758789,
+            'relative_ate_cm': 4.011892647427034, 'vio_relative_ate_cm':
+            11.264208869277033}, {'drone': 1, 'cost': 7.448361396789551,
+            'relative_ate_cm': 4.121223165071551, 'vio_relative_ate_cm':
+            11.264208869277033}, {'drone': 2, 'cost': 7.360134124755859,
+            'relative_ate_cm': 4.191938198650036, 'vio_relative_ate_cm':
+            11.264208869277033}],
+    },
+    "image": {
+        "loop_keys": [[0, 0, 1, 0], [0, 0, 1, 200], [0, 0, 1, 1000], [0, 0, 1,
+            1200], [0, 0, 1, 2000], [0, 0, 3, 400], [0, 200, 1, 0], [0, 200, 1,
+            800], [0, 200, 1, 1000], [0, 200, 1, 1800], [0, 200, 1, 2000], [0,
+            200, 1, 2800], [0, 200, 4, 400], [0, 200, 4, 1600], [0, 200, 4,
+            2800], [0, 400, 1, 400], [0, 400, 1, 600], [0, 400, 1, 1400], [0,
+            400, 1, 1600], [0, 400, 1, 2600], [0, 400, 2, 0], [0, 400, 2, 200],
+            [0, 400, 2, 1600], [0, 400, 2, 2600], [0, 400, 2, 2800], [0, 400,
+            3, 200], [0, 400, 3, 2000], [0, 400, 3, 2800], [0, 400, 4, 0], [0,
+            400, 4, 1200], [0, 400, 4, 2400], [0, 600, 3, 1600], [0, 800, 1,
+            200], [0, 1000, 0, 0], [0, 1000, 1, 0], [0, 1000, 1, 200], [0,
+            1000, 1, 1000], [0, 1000, 1, 1200], [0, 1000, 1, 2000], [0, 1000,
+            1, 2200], [0, 1000, 3, 400], [0, 1000, 3, 2200], [0, 1200, 0, 200],
+            [0, 1200, 1, 800], [0, 1200, 1, 1800], [0, 1200, 1, 2800], [0,
+            1200, 2, 400], [0, 1200, 3, 200], [0, 1200, 3, 2000], [0, 1200, 4,
+            400], [0, 1200, 4, 1400], [0, 1200, 4, 1600], [0, 1200, 4, 2600],
+            [0, 1200, 4, 2800], [0, 1400, 0, 400], [0, 1400, 2, 0], [0, 1400,
+            2, 1400], [0, 1400, 2, 2600], [0, 1400, 3, 0], [0, 1400, 3, 1800],
+            [0, 1600, 0, 600], [0, 1800, 0, 800], [0, 1800, 1, 200], [0, 1800,
+            3, 1400], [0, 2000, 0, 1000], [0, 2000, 1, 0], [0, 2000, 1, 1000],
+            [0, 2000, 1, 2000], [0, 2200, 0, 1200], [0, 2200, 2, 400], [0,
+            2200, 2, 1800], [0, 2200, 3, 1200], [0, 2200, 3, 2000], [0, 2200,
+            4, 200], [0, 2200, 4, 1400], [0, 2200, 4, 1600], [0, 2200, 4,
+            2400], [0, 2200, 4, 2600], [0, 2400, 0, 1400], [0, 2400, 2, 0], [0,
+            2400, 2, 1400], [0, 2400, 2, 2600], [0, 2600, 0, 1600], [0, 2600,
+            3, 600], [0, 2600, 3, 2400], [0, 2800, 0, 0], [0, 2800, 0, 1800],
+            [1, 200, 3, 400], [1, 200, 3, 1400], [1, 400, 2, 200], [1, 400, 2,
+            1400], [1, 400, 2, 1600], [1, 400, 2, 2800], [1, 400, 3, 1200], [1,
+            400, 4, 0], [1, 600, 2, 200], [1, 600, 2, 1600], [1, 600, 2, 2800],
+            [1, 600, 3, 200], [1, 600, 3, 1200], [1, 600, 3, 2000], [1, 600, 4,
+            0], [1, 600, 4, 200], [1, 600, 4, 1200], [1, 600, 4, 2400], [1,
+            800, 3, 200], [1, 800, 4, 400], [1, 800, 4, 1600], [1, 800, 4,
+            2800], [1, 1000, 1, 0], [1, 1000, 3, 400], [1, 1000, 3, 2200], [1,
+            1200, 1, 200], [1, 1200, 3, 400], [1, 1200, 3, 1400], [1, 1200, 3,
+            2200], [1, 1400, 1, 400], [1, 1400, 2, 200], [1, 1400, 2, 1400],
+            [1, 1400, 2, 1600], [1, 1400, 2, 2800], [1, 1600, 1, 600], [1,
+            1600, 2, 200], [1, 1600, 2, 1600], [1, 1600, 3, 200], [1, 1600, 3,
+            1200], [1, 1600, 3, 2000], [1, 1600, 4, 0], [1, 1600, 4, 200], [1,
+            1600, 4, 1200], [1, 1600, 4, 2400], [1, 1800, 1, 800], [1, 1800, 3,
+            2000], [1, 1800, 4, 400], [1, 1800, 4, 1600], [1, 1800, 4, 2600],
+            [1, 1800, 4, 2800], [1, 2000, 1, 0], [1, 2000, 1, 1000], [1, 2000,
+            3, 2200], [1, 2200, 1, 200], [1, 2200, 1, 1000], [1, 2200, 1,
+            1200], [1, 2200, 3, 400], [1, 2200, 3, 1400], [1, 2200, 3, 2200],
+            [1, 2400, 1, 400], [1, 2400, 1, 1400], [1, 2400, 2, 200], [1, 2400,
+            2, 1400], [1, 2400, 2, 1600], [1, 2400, 2, 2800], [1, 2600, 1,
+            600], [1, 2600, 1, 1600], [1, 2600, 1, 1800], [1, 2600, 2, 1600],
+            [1, 2600, 3, 200], [1, 2600, 3, 1200], [1, 2600, 3, 2000], [1,
+            2600, 4, 0], [1, 2800, 1, 800], [1, 2800, 1, 1600], [1, 2800, 1,
+            1800], [1, 2800, 2, 400], [1, 2800, 3, 200], [1, 2800, 3, 2000],
+            [1, 2800, 4, 400], [1, 2800, 4, 1600], [1, 2800, 4, 2600], [1,
+            2800, 4, 2800], [2, 0, 3, 0], [2, 0, 3, 1800], [2, 200, 4, 0], [2,
+            200, 4, 200], [2, 200, 4, 1200], [2, 400, 3, 200], [2, 400, 3,
+            1000], [2, 400, 3, 2000], [2, 400, 4, 200], [2, 400, 4, 1000], [2,
+            400, 4, 1400], [2, 400, 4, 2600], [2, 600, 4, 1000], [2, 600, 4,
+            2200], [2, 600, 4, 2400], [2, 1200, 3, 0], [2, 1200, 3, 1800], [2,
+            1400, 2, 0], [2, 1600, 2, 200], [2, 1600, 3, 200], [2, 1600, 3,
+            2000], [2, 1600, 4, 0], [2, 1600, 4, 1200], [2, 1600, 4, 2400], [2,
+            1800, 2, 400], [2, 1800, 4, 800], [2, 1800, 4, 2000], [2, 1800, 4,
+            2400], [2, 2000, 2, 600], [2, 2000, 4, 1000], [2, 2000, 4, 2200],
+            [2, 2200, 2, 800], [2, 2400, 2, 1000], [2, 2600, 2, 0], [2, 2600,
+            2, 1200], [2, 2600, 3, 0], [2, 2600, 3, 1800], [2, 2800, 2, 200],
+            [2, 2800, 2, 1400], [2, 2800, 4, 0], [2, 2800, 4, 1200], [3, 200,
+            4, 0], [3, 200, 4, 1200], [3, 200, 4, 2600], [3, 1000, 4, 1000],
+            [3, 1000, 4, 1200], [3, 1000, 4, 2400], [3, 1000, 4, 2600], [3,
+            1200, 4, 200], [3, 1200, 4, 1400], [3, 1200, 4, 2600], [3, 1800, 3,
+            0], [3, 2000, 3, 200], [3, 2000, 4, 0], [3, 2000, 4, 1200], [3,
+            2000, 4, 2600], [3, 2200, 3, 400], [3, 2400, 3, 600], [3, 2600, 3,
+            800], [3, 2800, 3, 1000], [3, 2800, 4, 1000], [3, 2800, 4, 1200],
+            [3, 2800, 4, 2400], [4, 1200, 4, 0], [4, 1400, 4, 200], [4, 1400,
+            4, 400], [4, 1600, 4, 400], [4, 1800, 4, 600], [4, 2000, 4, 800],
+            [4, 2200, 4, 1000], [4, 2400, 4, 0], [4, 2400, 4, 1200], [4, 2600,
+            4, 200], [4, 2600, 4, 1400], [4, 2800, 4, 400], [4, 2800, 4,
+            1600]],
+        "false_keys": [[0, 0, 1, 0], [0, 1400, 3, 1800], [1, 800, 3, 200], [1,
+            1000, 3, 400], [2, 200, 4, 200], [2, 400, 4, 1000], [3, 1000, 4,
+            1000], [3, 2800, 4, 1000]],
+        "loop_recall": 0.7064220183486238,
+        "loop_precision": 0.967479674796748,
+        "loop_precision_post_pcm": 0.972972972972973,
+        "loops_unique": 246,
+        "loops_found": 627,
+        "loops_received": 2216,
+        "revisit_opportunities": 218,
+        "all_solved": True,
+        "per_drone": [{'drone': 0, 'cost': 89.55062866210938,
+            'relative_ate_cm': 3.456951450644659, 'vio_relative_ate_cm':
+            6.902852534460312}, {'drone': 1, 'cost': 80.92842864990234,
+            'relative_ate_cm': 3.4416330128255583, 'vio_relative_ate_cm':
+            6.902852534460312}, {'drone': 2, 'cost': 65.9747314453125,
+            'relative_ate_cm': 3.510796931266719, 'vio_relative_ate_cm':
+            6.902852534460312}, {'drone': 3, 'cost': 80.84207916259766,
+            'relative_ate_cm': 3.4286676548716866, 'vio_relative_ate_cm':
+            6.902852534460312}, {'drone': 4, 'cost': 66.98129272460938,
+            'relative_ate_cm': 3.4298269757080155, 'vio_relative_ate_cm':
+            6.902852534460312}],
+    },
+}
+DEMO_KEY_SHARE = 0.02       # feature demo: symmetric key difference / count
+DEMO_COST_RTOL = 0.01       # feature demo: per-drone final cost
+DEMO_ATE_ATOL_CM = 0.5      # feature demo: relative ATE against its anchor
+IMG_RECALL_ATOL = 0.03      # image demo: recall against its anchor
+IMG_PRECISION_DROP = 0.02   # image demo: precision >= anchor - 0.02
+IMG_PCM_PRECISION_DROP = 0.01
+IMG_ATE_SLACK_CM = 0.5      # image demo: relative ATE <= anchor + 0.5 cm
+IMG_KEY_SHARE = 0.2         # image demo: symmetric key difference / count
+#                             (20-37 of 246 over six draw streams:
+#                             tools/demo_draw_spread.py)
+# detector parity, card against CPU on the same draws: retrieval and the
+# (homography-filtered) matches equal on every lane; PnP inlier sets may
+# differ on a few lanes (a point at the angular gate rounds either way, and
+# a count one off can change which near-tied hypothesis wins)
+DET_LANE_SHARE = 0.03       # live lanes whose PnP inlier sets differ
+DET_INLIER_SLACK = 2        # an accepted loop's inlier count
+DET_DPOSE_ATOL = 0.02       # an accepted loop's dpose (m, rad)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1303,6 +1484,263 @@ def estimator_phase() -> dict:
     return out
 
 
+def demo_flips(got: dict, want: dict) -> list:
+    """The loop keys in one run's set and not the other's, each marked
+    + (only in this run) or - (only in the anchors)."""
+    g = {tuple(k) for k in got["loop_keys"]}
+    w = {tuple(k) for k in want["loop_keys"]}
+    return ([["+"] + list(k) for k in sorted(g - w)]
+            + [["-"] + list(k) for k in sorted(w - g)])
+
+
+def same_demo_run(a: dict, b: dict) -> bool:
+    """Two runs of a demo bit-equal: loop keys, costs and estimates."""
+    return (a["loop_keys"] == b["loop_keys"]
+            and [d.get("cost") for d in a["per_drone"]]
+            == [d.get("cost") for d in b["per_drone"]]
+            and all(x is not None and y is not None and np.array_equal(x, y)
+                    for x, y in zip(a["estimates"], b["estimates"])))
+
+
+def detector_parity(prep, card: str = "cuda") -> dict:
+    """Drone 0's LoopDetector on the card and on the CPU, fed the image
+    demo's keyframes at the demo's tick shapes (each keyframe step: its
+    own keyframe, Qb 1, then the 4 peers' as one batch, Qb 4; 16 lanes per
+    query, the demo's Kb) with the same Gumbel noise, drawn on the CPU and
+    uploaded. Lane by lane, retrieval and the matches must be equal and
+    the PnP inlier sets may differ on at most DET_LANE_SHARE of the live
+    lanes; the accepted loops must be equal edge for edge (drones, stamps)
+    with inlier counts within DET_INLIER_SLACK and dpose within
+    DET_DPOSE_ATOL. Extraction runs on the card first; its K2 launches are
+    outside the counted runs.
+    """
+    import torch
+
+    from omniswarm_torch.config import FrontendParams
+    from omniswarm_torch.demo_entry import IMAGE_FP
+    from omniswarm_torch.frontend_entry import BASELINE
+    from omniswarm_torch.swarm.loop_cam import OmniLoopCam
+    from omniswarm_torch.swarm.loop_detector import LoopDetector
+
+    t0 = time.perf_counter()
+    cam = OmniLoopCam(params=FrontendParams(**IMAGE_FP), intrinsics=prep.intr,
+                      baseline=BASELINE, device=card)
+    with torch.no_grad():
+        steps = [cam.on_fisheye_frames_batch(entries)
+                 for entries in prep.steps]
+    t_extract = time.perf_counter() - t0
+    on_card = LoopDetector(0, FrontendParams(**IMAGE_FP), seed=0,
+                           device=card)
+    on_cpu = LoopDetector(0, FrontendParams(**IMAGE_FP), seed=0,
+                          device="cpu")
+    drawn = {}
+    cpu_draw = on_cpu.tick_noise
+
+    def cpu_noise(*key):
+        drawn.clear()
+        drawn[key] = cpu_draw(*key)
+        return drawn[key]
+
+    def card_noise(*key):
+        return tuple(None if x is None else x.to(card)
+                     for x in drawn.pop(key))
+
+    on_cpu.tick_noise, on_card.tick_noise = cpu_noise, card_noise
+
+    outs = {}
+    for name, det in (("card", on_card), ("cpu", on_cpu)):
+        def record(kfs, *tick, _walk=det._walk_tick, _name=name):
+            outs[_name] = tick          # the tick's downloaded outputs
+            return _walk(kfs, *tick)
+        det._walk_tick = record
+
+    def edges(results):
+        return [[(c.edge.drone_a, c.edge.t_a, c.edge.drone_b, c.edge.t_b)
+                 for c in per_kf] for per_kf in results]
+
+    stats = collections.Counter()
+    faults, inl_err, dpose_same, dpose_err, cpu_s = [], 0, 0.0, 0.0, 0.0
+    for i, kfs in enumerate(steps):
+        for batch in ([kfs[0]], kfs[1:]):
+            t1 = time.perf_counter()
+            want = on_cpu.on_keyframes_batch(batch)
+            cpu_s += time.perf_counter() - t1
+            got = on_card.on_keyframes_batch(batch)
+            if edges(got) != edges(want):
+                faults.append(f"step {i} Qb {len(batch)}: card "
+                              f"{edges(got)} CPU {edges(want)}")
+            for g, w in zip(sum(got, []), sum(want, [])):
+                stats["loops"] += 1
+                inl_err = max(inl_err, abs(g.num_inliers - w.num_inliers))
+                dpose_err = max(dpose_err, float(np.abs(
+                    np.asarray(g.edge.dpose) - np.asarray(w.edge.dpose)
+                ).max()))
+            # lane by lane: (src, slot, sim, idx_b, mask, n_match, n_valid,
+            # dpose, n_inliers, inliers)
+            (gs, gsl, _, gi, gm, _, _, gd, gk, gin) = outs["card"]
+            (ws, wsl, _, wi, wm, _, _, wd, wk, win) = outs["cpu"]
+            live = (gs >= 0) & (ws >= 0)
+            stats["lanes"] += gs.size
+            stats["retrieval_differs"] += int(
+                ((gs != ws) | (live & (gsl != wsl))).sum())
+            live &= gsl == wsl
+            stats["live"] += int(live.sum())
+            stats["matches_differ"] += int(
+                (live & ((gm != wm).any(-1) | (gi != wi).any(-1))).sum())
+            same_inl = (gin == win).all(-1)
+            stats["inlier_sets_differ"] += int((live & ~same_inl).sum())
+            stats["inlier_counts_differ"] += int((live & (gk != wk)).sum())
+            stats["lane_inliers_max_diff"] = max(
+                stats["lane_inliers_max_diff"],
+                int(np.abs(gk - wk)[live].max(initial=0)))
+            strong = live & same_inl & (np.minimum(gk, wk) >= 12)
+            if strong.any():
+                dpose_same = max(dpose_same, float(
+                    np.abs(gd - wd)[strong].max()))
+    out = dict(ticks=len(on_card.ticks), loops=stats["loops"],
+               lanes=stats["lanes"], live_lanes=stats["live"],
+               retrieval_differs=stats["retrieval_differs"],
+               matches_differ=stats["matches_differ"],
+               inlier_sets_differ=stats["inlier_sets_differ"],
+               inlier_counts_differ=stats["inlier_counts_differ"],
+               lane_inliers_max_diff=stats["lane_inliers_max_diff"],
+               loop_inliers_max_diff=inl_err,
+               loop_dpose_max_abs_err=dpose_err,
+               same_inliers_dpose_max_abs_err=dpose_same,
+               faults=len(faults), extract_s=t_extract, cpu_ticks_s=cpu_s,
+               seconds=time.perf_counter() - t0)
+    print("detector parity", json.dumps(out), flush=True)
+    for f in faults:
+        print(f"detector parity: {f}", flush=True)
+    check(not faults, f"the card's detector accepts other loops than the "
+          f"CPU's on {len(faults)} ticks")
+    check(stats["loops"] > 0, "detector parity: no loop accepted")
+    check(stats["retrieval_differs"] == 0 and stats["matches_differ"] == 0,
+          "detector parity: retrieval or matching differs")
+    check(stats["inlier_sets_differ"] <= DET_LANE_SHARE * stats["live"],
+          f"detector parity: PnP inliers differ on "
+          f"{stats['inlier_sets_differ']} of {stats['live']} lanes")
+    check(inl_err <= DET_INLIER_SLACK and dpose_err <= DET_DPOSE_ATOL,
+          f"detector parity: an accepted loop's inliers differ by {inl_err},"
+          f" its dpose by {dpose_err}")
+    return out
+
+
+def demo_numbers(res: dict, seconds: float, want: dict) -> dict:
+    """A demo run's numbers for the "demo" line, each drone's cost and
+    relative ATE beside its anchor's."""
+    keep = ("loop_recall", "loop_precision", "loop_precision_post_pcm",
+            "loops_unique", "loops_false", "loops_false_post_pcm",
+            "loops_found", "loops_received", "revisit_opportunities",
+            "all_solved", "frontend_views_per_s", "keyframe_latency_ms",
+            "detector_ticks", "detector_tick_ms_median",
+            "verify_lanes_per_tick", "k2_launches", "keyframe_steps")
+    out = {k: res[k] for k in keep if k in res}
+    out["per_drone"] = [
+        dict({k: d.get(k) for k in ("drone", "cost", "relative_ate_cm",
+                                    "vio_relative_ate_cm",
+                                    "mean_abs_ate_cm")},
+             anchor_cost=a["cost"],
+             anchor_relative_ate_cm=a["relative_ate_cm"])
+        for d, a in zip(res["per_drone"], want["per_drone"])]
+    out["seconds"] = seconds
+    return out
+
+
+def demos_phase() -> dict:
+    """Phase 9a: the two demos, each run twice (bit-equal) and held to the
+    JAX package's CPU anchors in DEMO_ANCHORS (the image demo's views
+    rendered once for both runs), then the detector's card-vs-CPU
+    parity."""
+    from omniswarm_torch.demo_entry import (feature_demo_entry,
+                                            image_demo_entry)
+    from omniswarm_torch.frontend_entry import prepare
+    from omniswarm_torch.ops.frontend_kernels import (
+        grid_nms, grid_nms_ref, retrieval_top1, retrieval_top1_ref)
+    from omniswarm_torch.solver.fused_level import (
+        fused_reduction_level, fused_reduction_level_ref)
+
+    out = {}
+    want = DEMO_ANCHORS["feature"]
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(feature_demo_entry(device="cuda"))
+        runs[-1]["seconds"] = time.perf_counter() - t0
+    res = runs[0]
+    flips = demo_flips(res, want)
+    print(f"feature demo: {res['loops_unique']} unique loops, flips against "
+          f"the anchors {flips}, bit-equal second run "
+          f"{same_demo_run(res, runs[1])}", flush=True)
+    check(same_demo_run(res, runs[1]), "two feature demo runs differ")
+    check(res["all_solved"], "feature demo: a drone did not solve")
+    check(len(flips) <= DEMO_KEY_SHARE * len(want["loop_keys"]),
+          f"feature demo: {len(flips)} loop keys differ from the anchors")
+    for got, ref in zip(res["per_drone"], want["per_drone"]):
+        held(f"feature demo drone {got['drone']} cost", got["cost"],
+             ref["cost"], rtol=DEMO_COST_RTOL)
+        check(abs(got["relative_ate_cm"] - ref["relative_ate_cm"])
+              <= DEMO_ATE_ATOL_CM, f"feature demo drone {got['drone']}: "
+              f"relative ATE {got['relative_ate_cm']} cm, anchor "
+              f"{ref['relative_ate_cm']} cm")
+    out["feature"] = dict(demo_numbers(res, res["seconds"], want),
+                          flips=flips)
+
+    want = DEMO_ANCHORS["image"]
+    prep = prepare()
+    runs = []
+    for i in range(2):
+        grid_nms.launches = retrieval_top1.launches = 0
+        fused_reduction_level.launches = 0
+        grid_nms_ref.calls = retrieval_top1_ref.calls = 0
+        fused_reduction_level_ref.calls = 0
+        t0 = time.perf_counter()
+        res = image_demo_entry(device="cuda", prep=prep)
+        res["seconds"] = time.perf_counter() - t0
+        res["k1_launches"] = fused_reduction_level.launches
+        res["k3_launches"] = retrieval_top1.launches
+        check(grid_nms_ref.calls == 0 and retrieval_top1_ref.calls == 0
+              and fused_reduction_level_ref.calls == 0,
+              "a plain kernel version ran on the demo path")
+        check(res["k2_launches"] == res["keyframe_steps"] == FE_STEPS,
+              f"image demo run {i}: K2 launched {res['k2_launches']} times "
+              f"in {res['keyframe_steps']} keyframe steps")
+        runs.append(res)
+    res = runs[0]
+    flips = demo_flips(res, want)
+    print(f"image demo: {res['loops_unique']} unique loops "
+          f"({len(want['loop_keys'])} in the anchors), flips {flips}, "
+          f"bit-equal second run {same_demo_run(res, runs[1])}", flush=True)
+    check(same_demo_run(res, runs[1]), "two image demo runs differ")
+    check(res["all_solved"], "image demo: a drone did not solve")
+    check(len(flips) <= IMG_KEY_SHARE * len(want["loop_keys"]),
+          f"image demo: {len(flips)} loop keys differ from the anchors")
+    check(abs(res["loop_recall"] - want["loop_recall"]) <= IMG_RECALL_ATOL,
+          f"image demo recall {res['loop_recall']} vs {want['loop_recall']}")
+    check(res["loop_precision"] >= want["loop_precision"]
+          - IMG_PRECISION_DROP, f"image demo precision "
+          f"{res['loop_precision']} vs {want['loop_precision']}")
+    check(res["loop_precision_post_pcm"] >= want["loop_precision_post_pcm"]
+          - IMG_PCM_PRECISION_DROP, f"image demo post-PCM precision "
+          f"{res['loop_precision_post_pcm']} vs "
+          f"{want['loop_precision_post_pcm']}")
+    for got, ref in zip(res["per_drone"], want["per_drone"]):
+        check(got["relative_ate_cm"] <= ref["relative_ate_cm"]
+              + IMG_ATE_SLACK_CM
+              and got["relative_ate_cm"] < got["vio_relative_ate_cm"],
+              f"image demo drone {got['drone']}: relative ATE "
+              f"{got['relative_ate_cm']} cm (anchor {ref['relative_ate_cm']}"
+              f", raw VIO {got['vio_relative_ate_cm']})")
+    out["image"] = dict(demo_numbers(res, res["seconds"], want),
+                        flips=flips, k1_launches=res["k1_launches"],
+                        k3_launches=res["k3_launches"],
+                        seconds_second_run=runs[1]["seconds"],
+                        render_s=prep.render_s)
+    out["detector_parity"] = detector_parity(prep)
+    print("demo", json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
     try:
@@ -1365,6 +1803,9 @@ def main() -> int:
           flush=True)
     est = estimator_phase()
     print(f"estimator path phase {est['seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    demos = demos_phase()
+    print(f"demos phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     main = next(r for r in rows
                 if (r["m"], r["t"], r["branch"]) == (40, 32, "warm"))
@@ -1389,6 +1830,7 @@ def main() -> int:
         "launches_f1024": paths[1024]["launches"],
         "launches_pcg_f1024": solver["pcg"]["launches"],
         "launches_estimator": est["k1_launches"],
+        "launches_demo": demos["image"]["k1_launches"],
         "shapes": rows,
         "checked": k1_checked + est["k1_checked"],
         "per_iteration": k1_per_iteration,
@@ -1399,6 +1841,7 @@ def main() -> int:
         "source": "omniswarm_torch/csrc/grid_nms.cu",
         "replaces": "omniswarm_tpu/ops/pallas_kernels.py:73 grid_nms_pallas",
         "launches": fe["k2_launches"],
+        "launches_demo": demos["image"]["k2_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2_main["ms"],
         "cold_ms": k2_main["cold_ms"],
@@ -1415,6 +1858,7 @@ def main() -> int:
         "replaces": "omniswarm_tpu/ops/pallas_kernels.py:113 "
                     "retrieval_top1_pallas",
         "launches": fe["k3_launches"],
+        "launches_demo": demos["image"]["k3_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
         "ms": k3_main["ms"],
         "plain_ms": k3_main["plain_ms"],

@@ -193,6 +193,7 @@ class Prepared(NamedTuple):
     intr: CameraIntrinsics
     steps: list                     # per keyframe step: OmniLoopCam entries
     render_s: float                 # host seconds spent rendering
+    kf_every: int                   # frames per keyframe step
 
 
 def prepare(num_drones: int = 5, num_frames: int = 30, kf_every: int = 2,
@@ -207,7 +208,8 @@ def prepare(num_drones: int = 5, num_frames: int = 30, kf_every: int = 2,
                             cy=fp.height / 2)
     t0 = time.perf_counter()
     steps = render_steps(data, fp, intr, kf_every)
-    return Prepared(data, fp, intr, steps, time.perf_counter() - t0)
+    return Prepared(data, fp, intr, steps, time.perf_counter() - t0,
+                    kf_every)
 
 
 def run_steps(cam: OmniLoopCam, fp: FrontendParams, steps):

@@ -1,6 +1,6 @@
 """Place-recognition database: a fixed-capacity descriptor matrix.
 
-Counterpart of ``omniswarm_tpu/ops/placedb.py`` (:19-111 and :193-204).
+Counterpart of ``omniswarm_tpu/ops/placedb.py`` (:19-204).
 Global descriptors live in an (N, D) ring on the device; a query is a
 matvec with masks for validity and the recency guard (entries of the
 querying drone within ``match_index_dist`` keyframes of the query are
@@ -13,12 +13,16 @@ index first, as ``jax.lax.top_k`` does.
 Unlike the reference's functional update, ``add`` writes the slot in place
 (the DB is 64 MB at the default 4096 x 4096) and returns the PlaceDB with
 the cursor advanced; the cursor is a Python int, so an insert needs no
-device read.
+device read. The batched ``query2_add_batch`` and
+``query2_add_payload_batch`` (the loop detector's tick) therefore run all
+of a batch's queries before any of its inserts, which is the reference's
+order too: batch members do not see each other.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from omniswarm_torch.core.device import resolve_device
@@ -128,3 +132,81 @@ def query_topk2(db_a: PlaceDB, db_b: PlaceDB, desc: torch.Tensor, meta, *,
     ia, sa = _topk_stable(_masked_sims(db_a, desc, qd, qf, guard_a)[0], k)
     ib, sb = _topk_stable(_masked_sims(db_b, desc, qd, qf, guard_b)[0], k)
     return ia, sa, ib, sb
+
+
+def _insert_slots(add_sel, sel_val: int, cursor: int, cap: int):
+    """(rows, slots): the batch rows with ``add_sel == sel_val`` and the
+    ring slots they take, in batch order from ``cursor`` (insert order is
+    the cumulative count of selected rows). Where one batch inserts more
+    rows than the ring holds, the last write to a slot wins."""
+    rows = np.flatnonzero(np.asarray(add_sel) == sel_val)
+    slots = (cursor + np.arange(len(rows))) % cap
+    if len(rows) > cap:
+        rows, slots = rows[-cap:], slots[-cap:]
+    return rows, slots
+
+
+def _insert(db: PlaceDB, descs: torch.Tensor, metas: torch.Tensor,
+            add_sel, sel_val: int) -> PlaceDB:
+    rows, slots = _insert_slots(add_sel, sel_val, db.cursor,
+                                db.desc.shape[0])
+    if len(rows):
+        dev = db.desc.device
+        r = torch.as_tensor(rows, device=dev)
+        sl = torch.as_tensor(slots, device=dev)
+        db.desc[sl] = descs[r].to(db.desc.dtype)
+        db.drone_id[sl] = metas[r, 0].to(db.drone_id.dtype)
+        db.frame_id[sl] = metas[r, 1].to(db.frame_id.dtype)
+        db.valid[sl] = True
+    return db._replace(
+        cursor=db.cursor + int((np.asarray(add_sel) == sel_val).sum()))
+
+
+def query2_add_batch(db_a: PlaceDB, db_b: PlaceDB, descs: torch.Tensor,
+                     metas: torch.Tensor, add_sel, *, k: int = 5):
+    """Q queries against both databases, then the masked ring inserts.
+
+    descs: (Q, D) unit query descriptors; metas: (Q, 4) integer tensor
+    [drone, frame, guard_a, guard_b]; add_sel: (Q,) host integers (numpy or
+    a list): 0 query-only, 1 insert into db_a, 2 insert into db_b. Every
+    query sees the databases as they were before the batch. Returns
+    (idx_a, sim_a, idx_b, sim_b, db_a', db_b'); the two databases are
+    written in place.
+    """
+    k = min(k, db_a.desc.shape[0])          # tiny-capacity DBs
+    metas = torch.as_tensor(metas, device=db_a.desc.device)
+    ia, sa = _topk_stable(_masked_sims(db_a, descs, metas[:, 0], metas[:, 1],
+                                       metas[:, 2]), k)
+    ib, sb = _topk_stable(_masked_sims(db_b, descs, metas[:, 0], metas[:, 1],
+                                       metas[:, 3]), k)
+    return (ia, sa, ib, sb, _insert(db_a, descs, metas, add_sel, 1),
+            _insert(db_b, descs, metas, add_sel, 2))
+
+
+def _scatter_payload(pay: torch.Tensor, qpacks: torch.Tensor, add_sel,
+                     sel_val: int, cursor: int) -> torch.Tensor:
+    rows, slots = _insert_slots(add_sel, sel_val, cursor, pay.shape[0])
+    if len(rows):
+        dev = pay.device
+        pay[torch.as_tensor(slots, device=dev)] = qpacks[
+            torch.as_tensor(rows, device=dev)].to(pay.dtype)
+    return pay
+
+
+def query2_add_payload_batch(db_a: PlaceDB, db_b: PlaceDB,
+                             pay_a: torch.Tensor, pay_b: torch.Tensor,
+                             descs: torch.Tensor, metas: torch.Tensor,
+                             add_sel, qpacks: torch.Tensor, *, k: int = 5):
+    """``query2_add_batch`` plus the landmark-payload rings.
+
+    pay_a/pay_b: (N, Kb, P) f16 rings mirroring the descriptor rings' slots
+    (each keyframe's packed local descriptors, validity, pixels and 3-D
+    points); qpacks: (Q, Kb, P), written at the same insert slots, in place.
+    Returns (idx_a, sim_a, idx_b, sim_b, db_a', db_b', pay_a', pay_b').
+    """
+    cur_a, cur_b = db_a.cursor, db_b.cursor
+    ia, sa, ib, sb, na, nb = query2_add_batch(
+        db_a, db_b, descs, metas, add_sel, k=k)
+    return (ia, sa, ib, sb, na, nb,
+            _scatter_payload(pay_a, qpacks, add_sel, 1, cur_a),
+            _scatter_payload(pay_b, qpacks, add_sel, 2, cur_b))

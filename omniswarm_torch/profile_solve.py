@@ -1,7 +1,7 @@
 """Where the time of the flagship LM solve and of the front-end goes on the GPU.
 
     python -m omniswarm_torch.profile_solve [--frames 100 1024] [--frontend]
-                                            [--estimator]
+                                            [--estimator] [--demo]
 
 Builds the seed-0, 5-drone problem, runs one warm-up solve, then traces one
 solve of 20 LM iterations with ``torch.profiler`` (CPU and
@@ -24,6 +24,16 @@ a warm solve of the full window (PCG at F=104) and a 4-lane multi-init
 re-init. Per traced solve: wall, host-build and device ms (telemetry),
 iterations, device-busy ms, the idle share, kernel launches per iteration,
 K1's device ms and launches, and the top kernels.
+
+``--demo`` runs ``demo_entry.image_demo_entry`` (5 drones x 30 frames,
+the views rendered first) and traces its last 3 keyframe steps (frames
+24-29: 3 extractions and about 30 detector ticks): the ticks' lanes and
+untraced medians (tick ms, keyframe latency, views/s over the whole run),
+device ms per tick by stage (the ``detector/*`` ranges: retrieval with the
+ring inserts and the candidate merge, verification, the download), host
+ms per call of each range (``detector/host_gates`` is the host's
+acceptance walk), the window's other device time by ``frontend/*`` stage,
+the idle share, and the kernels that take most of a tick.
 """
 from __future__ import annotations
 
@@ -110,7 +120,7 @@ def _device_events(prof):
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         annotation = evt.is_user_annotation or evt.name.startswith(
-            "frontend/")
+            ("frontend/", "detector/"))
         (annotations if annotation else kernels).append(evt)
     return kernels, annotations
 
@@ -237,6 +247,85 @@ def profile_estimator(top: int = 12) -> list:
     return out
 
 
+DEMO_TRACED_FRAMES = (24, 29)    # the last 3 keyframe steps of 15
+
+
+def profile_demo(top: int = 12) -> dict:
+    """The image demo (``demo_entry.image_demo_entry``, 5 drones x 30
+    frames) with its last 3 keyframe steps (frames 24-29) under the
+    profiler: where a keyframe's latency goes on the card. Rendering
+    happens before the run, the final solves after the window."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from omniswarm_torch.demo_entry import image_demo_entry
+    from omniswarm_torch.frontend_entry import prepare
+
+    resolve_device("cuda")
+    prep = prepare()
+    first, last = DEMO_TRACED_FRAMES
+    prof = torch_profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA])
+    window = {}
+
+    @contextlib.contextmanager
+    def around(k):
+        if k == first:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        yield
+        if k == last:
+            torch.cuda.synchronize()
+            window["wall_s"] = time.perf_counter() - window["t0"]
+            prof.stop()
+
+    res = image_demo_entry(prep=prep, around_frame=around)
+    wall_s = window["wall_s"]
+    kernels, annotations = _device_events(prof)
+    spans = sorted((a.time_range.start, a.time_range.end, a.name)
+                   for a in annotations
+                   if a.name.startswith(("frontend/", "detector/")))
+    stages = collections.defaultdict(float)
+    per_kernel = collections.defaultdict(lambda: [0.0, 0])
+    intervals = []
+    for k in kernels:
+        start, end = k.time_range.start, k.time_range.end
+        intervals.append((start, end))
+        name = next((nm for s0, e0, nm in spans if s0 <= start < e0),
+                    "outside the ranges")
+        stages[name] += end - start
+        if name.startswith("detector/"):
+            per_kernel[k.name][0] += end - start
+            per_kernel[k.name][1] += 1
+    busy_us = _busy_us(intervals)
+    cpu = torch.autograd.DeviceType.CPU
+    host = {e.key: (e.cpu_time_total / 1e3 / max(e.count, 1), e.count)
+            for e in prof.key_averages()
+            if e.key.startswith("detector/") and e.device_type == cpu}
+    ticks = host["detector/retrieval"][1]
+    top_kernels = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]
+    return {
+        "card": _card(), "path": "image demo", "traced_frames": [first, last],
+        "traced_ticks": ticks, "traced_wall_ms": wall_s * 1e3,
+        "verify_lanes_per_tick": res["verify_lanes_per_tick"],
+        "tick_ms_median": res["detector_tick_ms_median"],
+        "keyframe_latency_ms_median": res["keyframe_latency_ms"],
+        "views_per_s": res["frontend_views_per_s"],
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
+        "tick_stage_device_ms": {k: v / 1e3 / ticks for k, v in
+                                 stages.items() if k.startswith("detector/")},
+        "tick_stage_host_ms": {k: v[0] for k, v in host.items()},
+        "window_stage_device_ms": {k: v / 1e3 for k, v in stages.items()
+                                   if not k.startswith("detector/")},
+        "top_tick_kernels": [
+            {"name": name[:120], "ms_per_tick": us / 1e3 / ticks,
+             "launches_per_tick": cnt / ticks}
+            for name, (us, cnt) in top_kernels],
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, nargs="+", default=[100])
@@ -244,7 +333,12 @@ def main() -> None:
                     help="profile the front-end path instead of the solve")
     ap.add_argument("--estimator", action="store_true",
                     help="profile two estimator solves instead")
+    ap.add_argument("--demo", action="store_true",
+                    help="profile the image demo's keyframe ticks instead")
     args = ap.parse_args()
+    if args.demo:
+        print(json.dumps(profile_demo()), flush=True)
+        return
     if args.frontend:
         print(json.dumps(profile_frontend()), flush=True)
         return

@@ -14,9 +14,11 @@ device. Like the reference, which downloads them as f16, the pixel
 coordinates, local and global descriptors and landmarks are rounded to f16
 before they leave the device, so the two packages hand out the same values.
 Left out of the reference's LoopCam: the per-pair ``_extract_batch_fallback``
-(for injected test extractors), the batch padding to multiples of 4 (for
-XLA's compile cache) and the generic camera models (``ops/camera.py``);
-none of them changes an output row of this path.
+(for injected test extractors) and the batch padding to multiples of 4
+(for XLA's compile cache); neither changes an output row of this path.
+Intrinsics that carry a generic camera model (``ops.camera.CameraBearings``
+around a pinhole, MEI or Kannala-Brandt model, the reference's :125-134)
+lift the keypoints with that model's ``lift`` in the fused extraction.
 """
 from __future__ import annotations
 
@@ -98,6 +100,16 @@ class LoopCam:
                                          device=self.device)
         self.last_kp_valid: Optional[np.ndarray] = None
 
+    def _bearings(self, xy: torch.Tensor) -> torch.Tensor:
+        """Unit rays (..., 3) of pixel coords (..., 2): the generic camera
+        model's ``lift`` when the intrinsics carry one, else pinhole."""
+        camera = getattr(self.intr, "camera", None)
+        if camera is None:
+            return self.intr.bearings_torch(xy)
+        rays = camera.lift(xy.reshape(-1, 2)).reshape(xy.shape[:-1] + (3,))
+        return rays / torch.clamp(
+            torch.linalg.vector_norm(rays, dim=-1, keepdim=True), min=1e-9)
+
     @torch.no_grad()
     def _extract_device(self, lefts: np.ndarray, rights: np.ndarray):
         """The fused batch on the device; f16 outputs (and bool masks)."""
@@ -118,8 +130,8 @@ class LoopCam:
             xy_rm = torch.gather(xy_r, 1,
                                  m.idx_b[..., None].expand(-1, -1, 2))
         with record_function("frontend/triangulation"):
-            pts, err = triangulate_stereo(self.intr.bearings_torch(xy_l),
-                                          self.intr.bearings_torch(xy_rm),
+            pts, err = triangulate_stereo(self._bearings(xy_l),
+                                          self._bearings(xy_rm),
                                           self.baseline)
             depth = pts[..., 2]
             finite = torch.isfinite(pts).all(-1)

@@ -21,7 +21,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "omniswarm_tpu")
 
 def _port_files():
     files = sorted((ROOT / "omniswarm_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    # with the scripts that run on the card, where JAX is not installed
+    return files + [ROOT / "chip_smoke.py", ROOT / "tools/torch_repro_solve.py",
+                    ROOT / "tools/demo_draw_spread.py"]
 
 
 def test_port_files_exist():
@@ -43,7 +45,16 @@ def test_port_files_exist():
                  "omniswarm_torch/swarm/estimator.py",
                  "omniswarm_torch/io/checkpoint.py",
                  "omniswarm_torch/io/recorder.py",
-                 "omniswarm_torch/estimator_entry.py"):
+                 "omniswarm_torch/estimator_entry.py",
+                 "omniswarm_torch/demo_entry.py",
+                 "omniswarm_torch/swarm/comm.py",
+                 "omniswarm_torch/swarm/proxy.py",
+                 "omniswarm_torch/swarm/loop_detector.py",
+                 "omniswarm_torch/swarm/node.py",
+                 "omniswarm_torch/sim/visual_world.py",
+                 "omniswarm_torch/ops/homography.py",
+                 "omniswarm_torch/ops/ransac.py",
+                 "omniswarm_torch/ops/camera.py"):
         assert want in names
     for cu in ("fused_level", "grid_nms", "retrieval_top1"):
         assert (ROOT / f"omniswarm_torch/csrc/{cu}.cu").exists()
@@ -129,6 +140,45 @@ def test_frontend_entry_raises_without_cuda(monkeypatch):
                   pretrained_global_extractor, lambda: make_placedb(8, 4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
+
+
+def test_demo_entry_points_raise_without_cuda(monkeypatch):
+    from omniswarm_torch.demo_entry import (feature_demo_entry,
+                                            image_demo_entry)
+    from omniswarm_torch.swarm.comm import LossyBus
+    from omniswarm_torch.swarm.loop_detector import LoopDetector
+    from omniswarm_torch.swarm.node import DroneNode
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (feature_demo_entry, image_demo_entry,
+                  lambda: DroneNode(0, LossyBus(), global_dim=8),
+                  lambda: DroneNode(0, LossyBus(), global_dim=8,
+                                    device="cuda"),
+                  lambda: LoopDetector(0, global_dim=8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    node = DroneNode(0, LossyBus(), global_dim=8, device="cpu")
+    assert node.detector.device.type == "cpu"
+    assert node.estimator.device.type == "cpu"
+
+
+def test_cv2_only_inside_the_jpeg_codec():
+    """OpenCV is imported by encode_image / decode_image alone, when called
+    (the card's machine has none)."""
+    found = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        owner = {}
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef):
+                for node in ast.walk(fn):
+                    owner.setdefault(node, fn.name)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import) and any(
+                    a.name.split(".")[0] == "cv2" for a in node.names):
+                found.append((path.name, owner.get(node)))
+    assert sorted(found) == [("comm.py", "decode_image"),
+                             ("comm.py", "encode_image")]
 
 
 def test_dense_graph_to_torch_roundtrip():
