@@ -120,6 +120,28 @@ non-zero without printing a result.
    on_keyframes_batch), verify lanes per tick, views/s, the median keyframe
    latency, K1/K2/K3 launches (K2's and K1's also as launches_demo in the
    kernels line) and the parity's ticks, lanes and loops.
+10a. The multi-device layouts (omniswarm_torch.parallel), after 9a: one
+   spawn of 1 rank on NCCL and one of 4 gloo ranks sharing card 0 (several
+   ranks on one card need gloo: NCCL refuses two ranks on one device), each
+   running every layout (D=5, function_tolerance 0) after a small warm-up
+   solve: the frame-sharded window at F=1024, seed 0 (1022 loops, 4,088
+   Woodbury columns), 50 LM iterations, within 5e-3 of the port's exact
+   lm_solve_bt of the same problem in this run and of its JAX-CPU anchor,
+   relative ATE < 0.1; the dryrun's problem (F=256, seed 2, loop_every=16,
+   20 iterations) twice, bit-equal, within 5e-3 of its anchor; the
+   factor-sharded generic LM on the F=100 problem of 4a (detections on, 20
+   iterations) within 1e-3 of SOLVER_ANCHORS["generic_100"] and of the
+   port's lm_solve in this run, poses within 5e-3, relative ATE < 0.08; the
+   fleet of bench.py (8 lanes of 5 x 100, seeds 100-107, loop capacity the
+   largest lane's, 20 iterations; 2 lanes a rank at world 4), each lane
+   within 5e-3 of its own lm_solve_bt and of its anchor, lane 0 relative
+   ATE < 0.08, no collective but the one gather of the result; the fleet
+   also unsplit in this process. Every rank returns the same result, and K1,
+   K2 and K3 launch 0 times on every rank (no plain version runs either).
+   Anchors: PARALLEL_ANCHORS (tools/parallel_anchors.py). Printed, not held:
+   each run's backend, ms per LM iteration and collective calls and bytes
+   per iteration; with 4 ranks on one card they measure the layout's
+   overhead, not scaling. One "layouts" JSON line.
 8. One JSON line with the solver paths' numbers, one with the kernels'
    numbers (K1's launches on the estimator path as launches_estimator), then
    the result line.
@@ -674,6 +696,26 @@ IMG_KEY_SHARE = 0.2         # image demo: symmetric key difference / count
 DET_LANE_SHARE = 0.03       # live lanes whose PnP inlier sets differ
 DET_INLIER_SLACK = 2        # an accepted loop's inlier count
 DET_DPOSE_ATOL = 0.02       # an accepted loop's dpose (m, rad)
+
+
+# The multi-device phase's anchors, from the JAX package on the CPU on a
+# virtual 8-device mesh (PYTHONPATH=. JAX_PLATFORMS=cpu python
+# tools/parallel_anchors.py): the frame-sharded window on the dryrun's
+# problem at 4 and 1 devices, the fleet lanes' costs (lm_solve_multigraph)
+# and the exact lm_solve_bt at F=1024, 50 iterations.
+PARALLEL_ANCHORS = {
+    "window_256": {"world_4": 371.3642578125, "world_1": 371.3642578125,
+                   "loops": 80},
+    "fleet_100": {"cost": [181.0632781982422, 177.56858825683594,
+                           181.82156372070312, 182.10226440429688,
+                           175.84750366210938, 198.81910705566406,
+                           198.2699737548828, 196.14791870117188],
+                  "loop_capacity": 98, "iterations": 20},
+    "exact_1024": {"cost": 1998.881591796875, "initial_cost": 35108.265625,
+                   "loops": 1022},
+}
+LAYOUT_BAR = 5e-3           # __graft_entry__.py:93, :114, :147
+LAYOUT_RUNS = ((1, "nccl"), (4, "gloo"))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1741,6 +1783,209 @@ def demos_phase() -> dict:
     return out
 
 
+def layout_calls(problems: dict) -> list:
+    """The calls each rank of phase 10a makes, in order (launch.call_each),
+    with their names."""
+    par = "omniswarm_torch.parallel"
+    window = f"{par}.sharded_window:lm_solve_bt_sharded"
+    kw = dict(function_tolerance=0.0)
+    w32, w1024, w256 = (problems[k] for k in ("w32", "w1024", "w256"))
+    factors = f"{par}.sharded_solver:sharded_lm_solve"
+    fleet = f"{par}.swarm_batch:solve_fleet"
+    return [
+        # one small solve of each layout first: the ranks start cold
+        ("warm-up window F=32", window,
+         dict(graph=w32[1], poses0=w32[0].vio, max_iterations=2, **kw)),
+        ("warm-up factors F=16", factors,
+         dict(graph=problems["f16"][1], poses0=problems["f16"][2],
+              max_iterations=2, **kw)),
+        ("warm-up fleet 4 x F=16", fleet,
+         dict(graphs=problems["fleet16"][1],
+              inits=[d.vio for d in problems["fleet16"][0]],
+              max_iterations=2, **kw)),
+        ("window F=1024", window, dict(graph=w1024[1], poses0=w1024[0].vio,
+                                       max_iterations=50, **kw)),
+        ("window F=256", window, dict(graph=w256[1], poses0=w256[0].vio,
+                                      max_iterations=SOLVER_ITERS, **kw)),
+        ("window F=256 again", window,
+         dict(graph=w256[1], poses0=w256[0].vio,
+              max_iterations=SOLVER_ITERS, **kw)),
+        ("factors F=100", factors,
+         dict(graph=problems["f100"][1], poses0=problems["f100"][2],
+              max_iterations=SOLVER_ITERS, **kw)),
+        ("fleet 8 x F=100", fleet,
+         dict(graphs=problems["fleet"][1],
+              inits=[d.vio for d in problems["fleet"][0]],
+              max_iterations=SOLVER_ITERS, **kw)),
+    ]
+
+
+def layout_problems() -> dict:
+    """Phase 10a's problems, numpy leaves (each rank is handed them
+    whole)."""
+    from omniswarm_torch import sim
+    from omniswarm_torch.sim.pipeline import build_graph_from_sim
+    from omniswarm_torch.solver.dense import dense_graph_from_sim
+
+    def window(F, seed, **kw):
+        data = sim.generate(sim.SimParams(num_drones=5, num_frames=F,
+                                          seed=seed, **kw))
+        return data, dense_graph_from_sim(data)
+
+    def generic(F):
+        data = sim.generate(sim.SimParams(num_drones=5, num_frames=F,
+                                          seed=0))
+        return (data,) + build_graph_from_sim(data, enable_detections=True)
+
+    def fleet(lanes, F):
+        datas = [sim.generate(sim.SimParams(num_drones=5, num_frames=F,
+                                            seed=100 + k))
+                 for k in range(lanes)]
+        cap = max(8, max(len(d.loops) for d in datas))
+        return datas, [dense_graph_from_sim(d, max_loops=cap) for d in datas]
+
+    out = dict(w32=window(32, 3), w1024=window(1024, 0),
+               w256=window(256, 2, loop_every=16), f16=generic(16),
+               f100=generic(100), fleet16=fleet(4, 16), fleet=fleet(8, 100))
+    cap = out["fleet"][1][0].loops.valid.shape[0]
+    check(cap == PARALLEL_ANCHORS["fleet_100"]["loop_capacity"],
+          f"fleet loop capacity {cap}")
+    return out
+
+
+def layout_numbers(name: str, world: int, backend: str, calls) -> dict:
+    """One call of phase 10a (``calls``: its record on each rank): every
+    rank's result equal, no kernel and no plain version run; ms per LM
+    iteration (the slowest rank's) and collective calls and bytes per
+    iteration, printed."""
+    res = calls[0]["result"]
+    for c in calls[1:]:
+        check(np.array_equal(c["result"].cost, res.cost)
+              and np.array_equal(c["result"].poses, res.poses),
+              f"{name} at world {world}: the ranks' results differ")
+    for c in calls:
+        check(not any(c["kernels"].values()),
+              f"{name} at world {world}: kernels ran {c['kernels']}")
+    it = res.iterations
+    per_it = {k: dict(calls=v["calls"] / it, bytes=v["bytes"] / it)
+              for k, v in calls[0]["counts"].items()}
+    out = dict(layout=name, world=world, backend=backend,
+               cost=np.asarray(res.cost, np.float64).tolist(),
+               iterations=it,
+               ms_per_iteration=max(c["seconds"] for c in calls) * 1e3 / it,
+               collectives=calls[0]["counts"],
+               collectives_per_iteration=per_it)
+    print(f"layouts world {world} ({backend}) {name}: cost {out['cost']} "
+          f"iterations {it} {out['ms_per_iteration']:.2f} ms/iteration "
+          f"collectives/iteration {json.dumps(per_it)}", flush=True)
+    return out
+
+
+def layouts_phase() -> dict:
+    """Phase 10a: every layout at world 1 (NCCL) and world 4 (gloo, one
+    card), held to single-process solves of this run and to the anchors."""
+    import torch
+
+    from omniswarm_torch.eval import metrics
+    from omniswarm_torch.parallel.launch import call_each, run_ranks
+    from omniswarm_torch.parallel.swarm_batch import solve_fleet
+    from omniswarm_torch.solver.dense import lm_solve_bt
+    from omniswarm_torch.solver.gauss_newton import lm_solve
+
+    t0 = time.perf_counter()
+    problems = layout_problems()
+    names_calls = layout_calls(problems)
+    calls = [c[1:] for c in names_calls]
+    kw = dict(device="cuda", function_tolerance=0.0)
+    w1024, w256, f100 = problems["w1024"], problems["w256"], problems["f100"]
+    fleet_data, fleet_graphs = problems["fleet"]
+    exact, exact_s = timed(lambda: lm_solve_bt(
+        w1024[1], w1024[0].vio, max_iterations=50, exact_linear=True, **kw))
+    generic = lm_solve(f100[1], f100[2], max_iterations=SOLVER_ITERS, **kw)
+    singles = [float(lm_solve_bt(g, d.vio, max_iterations=SOLVER_ITERS,
+                                 **kw).cost)
+               for g, d in zip(fleet_graphs, fleet_data)]
+    unsplit, unsplit_s = timed(lambda: solve_fleet(
+        fleet_graphs, [d.vio for d in fleet_data],
+        max_iterations=SOLVER_ITERS, **kw))
+    print(f"layouts references: exact F=1024 cost {float(exact.cost)!r} "
+          f"{exact_s * 1e3 / exact.iterations:.2f} ms/iteration; lm_solve "
+          f"F=100 cost {float(generic.cost)!r}; fleet singles {singles}; "
+          f"fleet unsplit {unsplit.cost.tolist()} "
+          f"{unsplit_s * 1e3 / unsplit.iterations:.2f} ms/iteration",
+          flush=True)
+    fleet_anchor = PARALLEL_ANCHORS["fleet_100"]["cost"]
+    for b, cost in enumerate(unsplit.cost.tolist()):
+        held(f"unsplit fleet lane {b} vs its lm_solve_bt", cost, singles[b],
+             rtol=LAYOUT_BAR)
+        held(f"unsplit fleet lane {b}", cost, fleet_anchor[b],
+             rtol=LAYOUT_BAR)
+
+    out = dict(runs=[], references=dict(
+        exact_1024=float(exact.cost), generic_100=float(generic.cost),
+        fleet_singles=singles, fleet_unsplit=unsplit.cost.tolist(),
+        exact_1024_ms_per_iteration=exact_s * 1e3 / exact.iterations,
+        fleet_unsplit_ms_per_iteration=(unsplit_s * 1e3
+                                        / unsplit.iterations)))
+    launches = collections.Counter()
+    for world, backend in LAYOUT_RUNS:
+        t1 = time.perf_counter()
+        ranks = run_ranks(call_each, world, backend=backend, device="cuda",
+                          args=(calls,), timeout_s=600)
+        print(f"layouts world {world} backend {backend}: {world} rank(s) on "
+              f"{torch.cuda.device_count()} card(s), spawn and run "
+              f"{time.perf_counter() - t1:.1f} s (ranks sharing a card "
+              f"measure the layouts' overhead, not their scaling)",
+              flush=True)
+        nums = [layout_numbers(name, world, backend, [r[i] for r in ranks])
+                for i, (name, *_) in enumerate(names_calls)]
+        for r in ranks:
+            for c in r:
+                launches.update(c["kernels"])
+        res = {n["layout"]: ranks[0][i]["result"]
+               for i, n in enumerate(nums)}
+        out["runs"] += nums
+
+        w = res["window F=1024"]
+        ate = metrics.mean_relative_ate(w.poses, w1024[0].gt)
+        held(f"window F=1024 world {world} vs the exact lm_solve_bt",
+             float(w.cost), float(exact.cost), rtol=LAYOUT_BAR)
+        held(f"window F=1024 world {world}", float(w.cost),
+             PARALLEL_ANCHORS["exact_1024"]["cost"], rtol=LAYOUT_BAR)
+        check(ate < 0.1, f"window F=1024 world {world}: relative ATE {ate}")
+        a, b = res["window F=256"], res["window F=256 again"]
+        check_repeat(f"window F=256 world {world}", float(a.cost),
+                     float(b.cost), a.poses, b.poses)
+        held(f"window F=256 world {world}", float(a.cost),
+             PARALLEL_ANCHORS["window_256"][f"world_{world}"],
+             rtol=LAYOUT_BAR)
+        f = res["factors F=100"]
+        held(f"factors F=100 world {world}", float(f.cost),
+             SOLVER_ANCHORS["generic_100"]["cost"], rtol=1e-3)
+        held(f"factors F=100 world {world} vs lm_solve", float(f.cost),
+             float(generic.cost), rtol=1e-3)
+        dpose = float(np.abs(f.poses - generic.poses.cpu().numpy()).max())
+        ate = metrics.mean_relative_ate(f.poses, f100[0].gt)
+        check(dpose <= 5e-3 and ate < 0.08, f"factors F=100 world {world}: "
+              f"poses {dpose} from lm_solve, relative ATE {ate}")
+        fl = res["fleet 8 x F=100"]
+        for b, cost in enumerate(np.asarray(fl.cost, np.float64)):
+            held(f"fleet lane {b} world {world} vs its lm_solve_bt", cost,
+                 singles[b], rtol=LAYOUT_BAR)
+            held(f"fleet lane {b} world {world}", cost, fleet_anchor[b],
+                 rtol=LAYOUT_BAR)
+        ate = metrics.mean_relative_ate(fl.poses[0], fleet_data[0].gt)
+        check(ate < 0.08, f"fleet lane 0 world {world}: relative ATE {ate}")
+        counts = nums[-1]["collectives"]
+        check(list(counts) == ["all_gather/output"]
+              and counts["all_gather/output"]["calls"] == 1,
+              f"fleet world {world}: collectives {counts}")
+    out["launches"] = dict(launches)
+    out["seconds"] = time.perf_counter() - t0
+    print("layouts", json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
     try:
@@ -1806,6 +2051,10 @@ def main() -> int:
     t0 = time.perf_counter()
     demos = demos_phase()
     print(f"demos phase {time.perf_counter() - t0:.1f} s", flush=True)
+    layouts = layouts_phase()
+    print(f"layouts phase {layouts['seconds']:.1f} s: K1/K2/K3 launches "
+          f"{layouts['launches']['k1']}/{layouts['launches']['k2']}/"
+          f"{layouts['launches']['k3']} on the layouts' path", flush=True)
 
     main = next(r for r in rows
                 if (r["m"], r["t"], r["branch"]) == (40, 32, "warm"))

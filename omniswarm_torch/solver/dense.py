@@ -37,7 +37,7 @@ from omniswarm_torch.solver.block_tridiag import (
     unpack_bt_cols)
 from omniswarm_torch.solver.gauss_newton import (
     SolveResult, _apply_step, _jtj_pairs, _jtr, _param_mask,
-    damped_cholesky_step, poses_to_device, run_lm_loop)
+    damped_cholesky_step, poses_to_device, reduce_equations, run_lm_loop)
 from omniswarm_torch.solver.graph import RelPoseFactors, empty_relpose
 
 
@@ -381,13 +381,15 @@ def _det_terms(graph: DenseGraph, poses, huber_delta, sphere_std,
 @highp()
 def assemble_dense(graph: DenseGraph, poses: torch.Tensor, *,
                    huber_delta: float = 1.0, det_sphere_std: float = 0.1,
-                   det_inv_dep_std: float = 0.5):
+                   det_inv_dep_std: float = 0.5, axis=None, bad=None):
     """The full masked normal equations (H (P, P), g (P,), cost), P = 4FD.
 
     Same-frame (range, detection) blocks and the odometry chain come from
     the analytic grids and are written into H by index (each block once,
     no scatter); the loops, through the autodiff ``relpose_eval``, are one
-    sort-based scatter-add.
+    sort-based scatter-add. With ``axis`` the graph's validity masks hold
+    this rank's factors, and H, g and the cost are summed over the ranks
+    before the masks (``gauss_newton.reduce_equations``, flag ``bad``).
     """
     F, D = graph.pose_valid.shape
     dtype, dev = poses.dtype, poses.device
@@ -481,10 +483,13 @@ def assemble_dense(graph: DenseGraph, poses: torch.Tensor, *,
     gflat.index_put_((torch.cat([na, nb]),),
                      torch.cat([_jtr(ja, rl), _jtr(jb, rl)]),
                      accumulate=True)
+    g = gflat.reshape(P)
+    if axis is not None:
+        H, g, cost = reduce_equations(axis, H, g, cost, bad)
 
     m = _param_mask(graph, dtype)
     H = H * m[:, None] * m[None, :] + torch.diag(1.0 - m)
-    return H, gflat.reshape(P) * m, cost
+    return H, g * m, cost
 
 
 def _dense_problem(graph, poses0, device):
@@ -498,15 +503,21 @@ def _dense_problem(graph, poses0, device):
 def lm_solve_dense(graph: DenseGraph, poses0, *, device="cuda",
                    max_iterations: int = 100, huber_delta: float = 1.0,
                    det_sphere_std: float = 0.1, det_inv_dep_std: float = 0.5,
-                   function_tolerance: float = 1e-6) -> SolveResult:
+                   function_tolerance: float = 1e-6,
+                   axis=None) -> SolveResult:
     """LM on the dense (P, P) Hessian (``assemble_dense``), dense Cholesky
-    steps; the gold path for ``lm_solve_bt``."""
-    graph, poses0 = _dense_problem(graph, poses0, device)
+    steps; the gold path for ``lm_solve_bt``. ``axis``: the factor-sharded
+    mode of ``gauss_newton.lm_solve`` (``graph`` masked to this rank's
+    factors, solved on ``axis.device``)."""
+    graph, poses0 = _dense_problem(
+        graph, poses0, device if axis is None else axis.device)
     assemble = functools.partial(
         assemble_dense, graph, huber_delta=huber_delta,
-        det_sphere_std=det_sphere_std, det_inv_dep_std=det_inv_dep_std)
+        det_sphere_std=det_sphere_std, det_inv_dep_std=det_inv_dep_std,
+        axis=axis)
     return run_lm_loop(assemble, poses0, max_iterations=max_iterations,
-                       function_tolerance=function_tolerance)
+                       function_tolerance=function_tolerance,
+                       sharded=axis is not None)
 
 
 @highp()

@@ -1,7 +1,6 @@
 """Levenberg-Marquardt over the masked generic factor graph.
 
-Counterpart of ``omniswarm_tpu/solver/gauss_newton.py`` (without the
-``axis_name`` sharded mode, which belongs to the multi-device layouts):
+Counterpart of ``omniswarm_tpu/solver/gauss_newton.py``:
 
 1. every factor family evaluates residuals and (dim, 4) pose Jacobians by
    autodiff (``solver/factors.py``);
@@ -12,6 +11,14 @@ Counterpart of ``omniswarm_tpu/solver/gauss_newton.py`` (without the
    matrix that is not positive definite gives a rejected step, no raise);
 6. the accept/reject loop runs on the host, reading its done flag once per
    iteration.
+
+With ``axis`` (a ``parallel.collectives.Axis``; the reference's
+``axis_name``) the graph holds one rank's factor shard and the pose masks
+whole: each rank assembles its factors, H, g and the cost are summed over
+the ranks in ONE all-reduce of the packed ``[H | g | cost | bad]``, and the
+damped solve runs replicated. ``bad`` is the rank's previous step failure,
+reduced with the equations so that a failure on any rank gives every rank
+a NaN cost: every decision of the loop then reads a reduced value.
 
 Cost convention as in Ceres: 0.5 * sum(rho(||r_block||^2)). The scatter-adds
 are ``index_put_(accumulate=True)``, which is sort-based on CUDA, so the
@@ -98,11 +105,26 @@ def _family_terms(graph: FactorGraph, poses: torch.Tensor, huber_delta: float,
 @highp()
 def total_cost(graph: FactorGraph, poses: torch.Tensor, *,
                huber_delta: float = 1.0, det_sphere_std: float = 0.1,
-               det_inv_dep_std: float = 0.5) -> torch.Tensor:
-    """Robustified total cost at the given poses (Ceres convention)."""
+               det_inv_dep_std: float = 0.5, axis=None) -> torch.Tensor:
+    """Robustified total cost at the given poses (Ceres convention); with
+    ``axis``, the rank's partial cost summed over the ranks."""
     _, cost = _family_terms(graph, poses, huber_delta, det_sphere_std,
                             det_inv_dep_std)
-    return cost
+    return cost if axis is None else axis.psum(cost)
+
+
+def reduce_equations(axis, H: torch.Tensor, g: torch.Tensor,
+                     cost: torch.Tensor, bad=None):
+    """(H, g, cost) summed over ``axis`` in one all-reduce of the packed
+    ``[H | g | cost | bad]``; the cost is NaN where any rank's ``bad`` (its
+    local step failure; default False) was set."""
+    flag = torch.zeros((), dtype=H.dtype, device=H.device) if bad is None \
+        else bad.to(H.dtype).reshape(())
+    red = axis.psum(torch.cat([H.reshape(-1), g.reshape(-1),
+                               cost.reshape(1), flag.reshape(1)]))
+    n, p = H.numel(), g.numel()
+    cost = torch.where(red[n + p + 1] > 0, float("nan"), red[n + p])
+    return red[:n].reshape(H.shape), red[n:n + p].reshape(g.shape), cost
 
 
 def _param_mask(graph, dtype=torch.float32) -> torch.Tensor:
@@ -128,11 +150,14 @@ def _jtr(X, r):
 def assemble_normal_equations(graph: FactorGraph, poses: torch.Tensor, *,
                               huber_delta: float = 1.0,
                               det_sphere_std: float = 0.1,
-                              det_inv_dep_std: float = 0.5):
+                              det_inv_dep_std: float = 0.5, axis=None,
+                              bad=None):
     """(H (P, P), g (P,), cost) with the gauge/validity masks applied.
 
     Every family's (node_row, node_col) 4x4 blocks land in one (N*N, 16)
-    scatter-add and every gradient block in one (N, 4) scatter-add.
+    scatter-add and every gradient block in one (N, 4) scatter-add. With
+    ``axis`` the rank's sums are reduced before the masks
+    (``reduce_equations``, with the flag ``bad``).
     """
     F, D = graph.pose_valid.shape
     N = F * D
@@ -160,9 +185,12 @@ def assemble_normal_equations(graph: FactorGraph, poses: torch.Tensor, *,
 
     P = 4 * N
     H = Hb.reshape(N, N, 4, 4).permute(0, 2, 1, 3).reshape(P, P)
+    g = gb.reshape(P)
+    if axis is not None:
+        H, g, cost = reduce_equations(axis, H, g, cost, bad)
     m = _param_mask(graph, dtype)
     H = H * m[:, None] * m[None, :] + torch.diag(1.0 - m)
-    return H, gb.reshape(P) * m, cost
+    return H, g * m, cost
 
 
 def _apply_step(poses: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
@@ -187,13 +215,17 @@ def damped_cholesky_step(H: torch.Tensor, g: torch.Tensor,
 
 @highp()
 def run_lm_loop(assemble, poses0: torch.Tensor, *, max_iterations: int,
-                function_tolerance: float = 1e-6) -> SolveResult:
+                function_tolerance: float = 1e-6,
+                sharded: bool = False) -> SolveResult:
     """LM trust loop over any assemble(poses) -> (H, g, cost).
 
     λ starts at 1e-4 and goes ×0.3 on accept, ×5 on reject, clipped to
     [1e-10, 1e10]; the loop ends at ``max_iterations``, on convergence (an
     accepted step that lowers the cost by at most ``function_tolerance``
-    relative) or on a stall (a reject with λ >= 1e9).
+    relative) or on a stall (a reject with λ >= 1e9). ``sharded``: the
+    assembly reduces over ranks and is called as ``assemble(poses,
+    bad=...)`` with the step's failure flag, so that the cost it returns
+    (NaN after a failure on any rank) decides for every rank alike.
     """
     H, g, cost = assemble(poses0)
     init_cost = cost
@@ -205,7 +237,8 @@ def run_lm_loop(assemble, poses0: torch.Tensor, *, max_iterations: int,
         dx, bad = damped_cholesky_step(H, g, lam)
         new_poses = _apply_step(poses, dx)
         # the candidate's normal equations double as its cost evaluation
-        Hn, gn, new_cost = assemble(new_poses)
+        Hn, gn, new_cost = (assemble(new_poses, bad=bad) if sharded
+                            else assemble(new_poses))
         accept = torch.isfinite(new_cost) & (new_cost < cost) & ~bad
         poses = torch.where(accept, new_poses, poses)
         H = torch.where(accept, Hn, H)
@@ -240,15 +273,23 @@ def _device_problem(graph, poses0, device):
 def lm_solve(graph: FactorGraph, poses0, *, device="cuda",
              max_iterations: int = 100, huber_delta: float = 1.0,
              det_sphere_std: float = 0.1, det_inv_dep_std: float = 0.5,
-             function_tolerance: float = 1e-6) -> SolveResult:
+             function_tolerance: float = 1e-6, axis=None) -> SolveResult:
     """LM solve of the masked generic graph (numpy or tensor leaves, moved
-    to ``device``) from ``poses0`` (F, D, 4)."""
-    graph, poses0 = _device_problem(graph, poses0, device)
+    to ``device``) from ``poses0`` (F, D, 4).
+
+    ``axis``: the factor-sharded mode (the module docstring); ``graph`` is
+    this rank's shard, the solve runs on ``axis.device`` and every rank
+    returns the same replicated result.
+    """
+    graph, poses0 = _device_problem(
+        graph, poses0, device if axis is None else axis.device)
     assemble = functools.partial(
         assemble_normal_equations, graph, huber_delta=huber_delta,
-        det_sphere_std=det_sphere_std, det_inv_dep_std=det_inv_dep_std)
+        det_sphere_std=det_sphere_std, det_inv_dep_std=det_inv_dep_std,
+        axis=axis)
     return run_lm_loop(assemble, poses0, max_iterations=max_iterations,
-                       function_tolerance=function_tolerance)
+                       function_tolerance=function_tolerance,
+                       sharded=axis is not None)
 
 
 @highp()

@@ -54,7 +54,14 @@ def test_port_files_exist():
                  "omniswarm_torch/sim/visual_world.py",
                  "omniswarm_torch/ops/homography.py",
                  "omniswarm_torch/ops/ransac.py",
-                 "omniswarm_torch/ops/camera.py"):
+                 "omniswarm_torch/ops/camera.py",
+                 "omniswarm_torch/parallel/collectives.py",
+                 "omniswarm_torch/parallel/launch.py",
+                 "omniswarm_torch/parallel/bt_spike.py",
+                 "omniswarm_torch/parallel/sharded_solver.py",
+                 "omniswarm_torch/parallel/sharded_window.py",
+                 "omniswarm_torch/parallel/swarm_batch.py",
+                 "omniswarm_torch/parallel_entry.py"):
         assert want in names
     for cu in ("fused_level", "grid_nms", "retrieval_top1"):
         assert (ROOT / f"omniswarm_torch/csrc/{cu}.cu").exists()
@@ -160,6 +167,21 @@ def test_demo_entry_points_raise_without_cuda(monkeypatch):
     node = DroneNode(0, LossyBus(), global_dim=8, device="cpu")
     assert node.detector.device.type == "cpu"
     assert node.estimator.device.type == "cpu"
+
+
+def test_parallel_entry_points_raise_without_cuda(monkeypatch):
+    from omniswarm_torch.parallel.launch import call_each, run_ranks
+    from omniswarm_torch.parallel_entry import dryrun_multichip
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: dryrun_multichip(2),
+                 lambda: run_ranks(call_each, 2, backend="gloo",
+                                   args=([],))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # nccl takes CUDA tensors only: no CPU run through it
+    with pytest.raises(ValueError, match="nccl"):
+        run_ranks(call_each, 1, backend="nccl", device="cpu", args=([],))
 
 
 def test_cv2_only_inside_the_jpeg_codec():
