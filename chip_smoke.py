@@ -142,9 +142,33 @@ non-zero without printing a result.
    each run's backend, ms per LM iteration and collective calls and bytes
    per iteration; with 4 ranks on one card they measure the layout's
    overhead, not scaling. One "layouts" JSON line.
+11a. The production node (omniswarm_torch.runtime.run_node through
+   omniswarm_torch.node_entry), after 10a: 7a's flight (5 drones x 150
+   frames, seed 0) with drone 4 held still as configs/swarm5.yaml's static
+   anchor, as the node's JSON lines (frame, vio, det; no loop edges: the
+   protocol carries none). (a) Two paced sessions of NodeLoop on
+   swarm5.yaml with a solve every 10th frame and max_solver_time 0, one on
+   the worker thread (waiting for each solve) and one inline: bit-equal in
+   every solve line, window and prediction; 14 solves after the refused
+   first; the final relative ATE below raw VIO's; the last prediction of 5
+   drones; K1's launches on the threaded run (new level shapes checked
+   against the plain version). Then python -m
+   omniswarm_torch.runtime.run_node --no-udp in a subprocess at the
+   config's own cadence (force_freq 1), fed 4 frames a wall second from
+   its ready line: exit 0, at least 3 solves, the last at t >= 0.85 of the
+   flight's final t, the last prediction of all 5 drones; printed: solves
+   dispatched, messages that found one in flight, the median solve wall,
+   the predict lines' wall gaps (p50, p99) with and without a solve in
+   flight, and each prediction's own wall time (with a solve in flight
+   here; without one in the paced threaded session). (b) Two runtime.drone_process processes on the card over
+   loopback multicast (tests/test_multiprocess.py's scenario: 2 drones x
+   16 frames, seed 55, world seed 7): exit 0, each that solved within
+   relative ATE 0.3, at least one solved, loop edges crossed. (c) The
+   feature demo's per-drone reports, written by 9a's first run: each
+   summary.json's relative ATE equal to the demo's. One "node" JSON line.
 8. One JSON line with the solver paths' numbers, one with the kernels'
-   numbers (K1's launches on the estimator path as launches_estimator), then
-   the result line.
+   numbers (K1's launches on the estimator path as launches_estimator, on
+   the node's threaded session as launches_node), then the result line.
 """
 from __future__ import annotations
 
@@ -716,6 +740,15 @@ PARALLEL_ANCHORS = {
 }
 LAYOUT_BAR = 5e-3           # __graft_entry__.py:93, :114, :147
 LAYOUT_RUNS = ((1, "nccl"), (4, "gloo"))
+# The production node's phase (11a)
+NODE_DRONES = 5
+NODE_FPS = 4.0              # frames a wall second fed to the free node
+NODE_FINAL_SHARE = 0.85     # tests/test_run_node.py:168-170
+NODE_MIN_SOLVED = 3
+NODE_MP_ATE = 0.3           # tests/test_multiprocess.py:52
+NODE_MP_PORT = 17801
+REPORT_ATE_RTOL = 1e-9      # a report's ATE against the demo's
+WORK_DIR = "build/chip_smoke"   # scratch files, inside the checkout
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1705,9 +1738,11 @@ def demos_phase() -> dict:
     out = {}
     want = DEMO_ANCHORS["feature"]
     runs = []
-    for _ in range(2):
+    for i in range(2):
         t0 = time.perf_counter()
-        runs.append(feature_demo_entry(device="cuda"))
+        runs.append(feature_demo_entry(
+            device="cuda",
+            report_dir=f"{WORK_DIR}/demo_reports" if i == 0 else None))
         runs[-1]["seconds"] = time.perf_counter() - t0
     res = runs[0]
     flips = demo_flips(res, want)
@@ -1727,6 +1762,10 @@ def demos_phase() -> dict:
               f"{ref['relative_ate_cm']} cm")
     out["feature"] = dict(demo_numbers(res, res["seconds"], want),
                           flips=flips)
+    out["feature_reports"] = [
+        dict(drone=d["drone"], report=d.get("report"),
+             relative_ate_cm=d.get("relative_ate_cm"))
+        for d in res["per_drone"]]
 
     want = DEMO_ANCHORS["image"]
     prep = prepare()
@@ -1986,6 +2025,151 @@ def layouts_phase() -> dict:
     return out
 
 
+def node_paced() -> dict:
+    """Phase 11a (a), paced: the flight through NodeLoop on the worker
+    thread and inline, bit-equal, beating raw VIO; K1 counted on the
+    threaded run and checked at its new level shapes."""
+    from omniswarm_torch.node_entry import paced_sessions
+    from omniswarm_torch.solver.fused_level import (
+        fused_reduction_level, fused_reduction_level_ref)
+
+    t0 = time.perf_counter()
+    with k1_recording() as levels:
+        paced = paced_sessions(device="cuda")
+    check(fused_reduction_level_ref.calls == 0,
+          "the plain level ran on the node path")
+    for name in ("threaded", "inline"):
+        run = paced[name]
+        for s, w in zip(run["solves"], run["windows"]):
+            if not s.get("solved"):
+                continue
+            print(f"node paced {name} solve t={s['t']}: {len(w)} keyframes "
+                  f"cost {s['cost']!r} iterations {s['iterations']} "
+                  f"finish_init {s['finish_init']}", flush=True)
+        print(f"node paced {name}: {run['seconds']:.1f} s, relative ATE "
+              f"{run['relative_ate']!r} (raw VIO {run['vio_relative_ate']!r})"
+              f", {run['predictions']} predictions, K1 "
+              f"{run['k1_launches']}", flush=True)
+    thr = paced["threaded"]
+    check(paced["bit_equal"], "the threaded and inline node sessions differ")
+    check(len(thr["solves"]) == 15 and all(
+        s.get("solved") for s in thr["solves"][1:]),
+        f"node paced: solves {thr['solves']}")
+    check(thr["relative_ate"] is not None
+          and thr["relative_ate"] < thr["vio_relative_ate"],
+          f"node paced: relative ATE {thr['relative_ate']} against raw "
+          f"VIO's {thr['vio_relative_ate']}")
+    check(thr["last_prediction_drones"] == NODE_DRONES,
+          f"node paced: the last prediction has "
+          f"{thr['last_prediction_drones']} drones")
+    print(f"node paced: bit-equal {paced['bit_equal']}, K1 launches "
+          f"{thr['k1_launches']} on the threaded run at {dict(levels)}; "
+          f"threaded cadence {json.dumps(thr['cadence'])}", flush=True)
+    return dict(
+        bit_equal=paced["bit_equal"], k1_launches=thr["k1_launches"],
+        k1_launches_both=fused_reduction_level.launches,
+        k1_levels=[[m, t, n] for (m, t), n in sorted(levels.items())],
+        k1_checked=estimator_checks_k1(levels),
+        relative_ate=thr["relative_ate"],
+        vio_relative_ate=thr["vio_relative_ate"],
+        cadence_threaded=thr["cadence"],
+        costs=[s.get("cost") for s in thr["solves"]],
+        finish_init=[s.get("finish_init") for s in thr["solves"]],
+        seconds_threaded=thr["seconds"],
+        seconds_inline=paced["inline"]["seconds"],
+        seconds=time.perf_counter() - t0)
+
+
+def node_free() -> dict:
+    """Phase 11a (a), free-running: run_node.main in a subprocess at the
+    config's own cadence."""
+    from omniswarm_torch import sim
+    from omniswarm_torch.node_entry import (free_running,
+                                            free_running_summary,
+                                            frame_lines, node_flight)
+
+    data = node_flight(sim)
+    final_t = float(data.times[-1])
+    run = free_running(frame_lines(data), fps=NODE_FPS)
+    out = free_running_summary(run, final_t)
+    print("node free-running", json.dumps(out), flush=True)
+    check(out["returncode"] == 0,
+          f"node free-running: exit {out['returncode']}: "
+          f"{run['stderr_tail']}")
+    check(out["solved"] >= NODE_MIN_SOLVED,
+          f"node free-running: {out['solved']} solves")
+    check(out["last_solved_t"] >= NODE_FINAL_SHARE * final_t,
+          f"node free-running: the last solve at t={out['last_solved_t']}"
+          f" of {final_t}")
+    check(out["last_prediction_drones"] == NODE_DRONES,
+          f"node free-running: the last prediction has "
+          f"{out['last_prediction_drones']} drones")
+    return out
+
+
+def node_processes() -> dict:
+    """Phase 11a (b): two drone processes over loopback multicast."""
+    from omniswarm_torch.node_entry import process_swarm
+
+    out = process_swarm(f"{WORK_DIR}/processes", port=NODE_MP_PORT)
+    for row in out["processes"]:
+        print(f"node process {row['drone']}: exit {row['returncode']} "
+              f"solved {row['solved']} relative ATE {row['relative_ate']!r}"
+              f" loops found/received {row.get('loops_found')}/"
+              f"{row.get('loops_received')}", flush=True)
+        check(row["returncode"] == 0, f"drone process {row['drone']}: "
+              f"{row['tail']}")
+        check(not row["solved"] or row["relative_ate"] < NODE_MP_ATE,
+              f"drone process {row['drone']}: relative ATE "
+              f"{row['relative_ate']}")
+    rows = out["processes"]
+    check(any(r["solved"] for r in rows), "no drone process solved")
+    check(sum(r["loops_found"] + r["loops_received"] for r in rows
+              if r["solved"]) > 0, "no loop edge crossed the processes")
+    for row in rows:
+        row.pop("tail")
+    return out
+
+
+def node_reports(reports: list) -> list:
+    """Phase 11a (c): the feature demo's per-drone reports of 9a."""
+    rows = []
+    for r in reports:
+        path = f"{r['report']}/summary.json" if r["report"] else None
+        check(path is not None, f"feature demo drone {r['drone']}: no report")
+        with open(path) as f:
+            summary = json.load(f)
+        got = summary["mean_relative_ate"] * 100
+        check(abs(got - r["relative_ate_cm"])
+              <= REPORT_ATE_RTOL * abs(r["relative_ate_cm"]),
+              f"{path}: relative ATE {got} cm, the demo's "
+              f"{r['relative_ate_cm']} cm")
+        rows.append(dict(drone=r["drone"], report=path, relative_ate_cm=got))
+    print(f"node reports: {len(rows)} summaries agree with the demo's ATE",
+          flush=True)
+    return rows
+
+
+def node_phase(reports: list) -> dict:
+    """Phase 11a: the production node (see the docstring)."""
+    from omniswarm_torch.ops.frontend_kernels import (grid_nms,
+                                                      retrieval_top1)
+
+    t0 = time.perf_counter()
+    grid_nms.launches = retrieval_top1.launches = 0
+    out = dict(paced=node_paced())
+    out["k2_launches"], out["k3_launches"] = (grid_nms.launches,
+                                              retrieval_top1.launches)
+    t1 = time.perf_counter()
+    out["free_running"] = node_free()
+    out["free_running"]["phase_seconds"] = time.perf_counter() - t1
+    out["processes"] = node_processes()
+    out["reports"] = node_reports(reports)
+    out["seconds"] = time.perf_counter() - t0
+    print("node", json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
     try:
@@ -2055,6 +2239,10 @@ def main() -> int:
     print(f"layouts phase {layouts['seconds']:.1f} s: K1/K2/K3 launches "
           f"{layouts['launches']['k1']}/{layouts['launches']['k2']}/"
           f"{layouts['launches']['k3']} on the layouts' path", flush=True)
+    node = node_phase(demos["feature_reports"])
+    print(f"node phase {node['seconds']:.1f} s: K1/K2/K3 launches "
+          f"{node['paced']['k1_launches']}/{node['k2_launches']}/"
+          f"{node['k3_launches']} on the node's threaded path", flush=True)
 
     main = next(r for r in rows
                 if (r["m"], r["t"], r["branch"]) == (40, 32, "warm"))
@@ -2068,7 +2256,8 @@ def main() -> int:
                     "fused_reduction_level",
         "launches": paths[100]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + k1_checked
-                           + est["k1_checked"]),
+                           + est["k1_checked"]
+                           + node["paced"]["k1_checked"]),
         "ms": main["ms"],
         "kernel_ms": main["ms"],
         "wrapper_ms": main["wrapper_ms"],
@@ -2080,8 +2269,10 @@ def main() -> int:
         "launches_pcg_f1024": solver["pcg"]["launches"],
         "launches_estimator": est["k1_launches"],
         "launches_demo": demos["image"]["k1_launches"],
+        "launches_node": node["paced"]["k1_launches"],
         "shapes": rows,
-        "checked": k1_checked + est["k1_checked"],
+        "checked": k1_checked + est["k1_checked"]
+        + node["paced"]["k1_checked"],
         "per_iteration": k1_per_iteration,
         "main_paths": list(paths.values()),
     }, {
@@ -2091,6 +2282,7 @@ def main() -> int:
         "replaces": "omniswarm_tpu/ops/pallas_kernels.py:73 grid_nms_pallas",
         "launches": fe["k2_launches"],
         "launches_demo": demos["image"]["k2_launches"],
+        "launches_node": node["k2_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2_main["ms"],
         "cold_ms": k2_main["cold_ms"],
@@ -2108,6 +2300,7 @@ def main() -> int:
                     "retrieval_top1_pallas",
         "launches": fe["k3_launches"],
         "launches_demo": demos["image"]["k3_launches"],
+        "launches_node": node["k3_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
         "ms": k3_main["ms"],
         "plain_ms": k3_main["plain_ms"],

@@ -1,9 +1,10 @@
 """4-DoF pose geometry as broadcastable torch operations.
 
-Counterpart of ``omniswarm_tpu/core/geometry.py`` (normalize_angle ..
-delta_pose_trans, :33-85, the numpy SE(3) helpers, :156-230, and the numpy
-tangent basis, :232). Poses are tensors of shape ``(..., 4)`` =
-``[x, y, z, yaw]``, points ``(..., 3)``.
+Counterpart of ``omniswarm_tpu/core/geometry.py``: the pose algebra
+(:33-93), quaternions (:100-143), the numpy SE(3) helpers (:156-230), the
+tangent basis (numpy :232, torch :256) and the consistency metrics
+(:276-290). Poses are tensors of shape ``(..., 4)`` = ``[x, y, z, yaw]``,
+quaternions ``(..., 4)`` in ``(w, x, y, z)`` order, points ``(..., 3)``.
 """
 from __future__ import annotations
 
@@ -30,6 +31,14 @@ def yaw_rotate(yaw: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     y = s * vec[..., 0] + c * vec[..., 1]
     z = torch.broadcast_to(vec[..., 2], x.shape)
     return torch.stack([x, y, z], dim=-1)
+
+
+def pose_position(pose: torch.Tensor) -> torch.Tensor:
+    return pose[..., :3]
+
+
+def pose_yaw(pose: torch.Tensor) -> torch.Tensor:
+    return pose[..., 3]
 
 
 def make_pose(position: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
@@ -63,6 +72,95 @@ def delta_pose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def delta_pose_trans(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Translation-only relative position of b in a's frame, (..., 3)."""
     return yaw_rotate(-a[..., 3], b[..., :3] - a[..., :3])
+
+
+def transform_point(pose: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
+    """Map point from pose's body frame into the world frame."""
+    return yaw_rotate(pose[..., 3], point) + pose[..., :3]
+
+
+def inverse_transform_point(pose: torch.Tensor,
+                            point: torch.Tensor) -> torch.Tensor:
+    """Map a world-frame point into pose's body frame."""
+    return yaw_rotate(-pose[..., 3], point - pose[..., :3])
+
+
+# ---------------------------------------------------------------------------
+# Quaternions (w, x, y, z), for ingesting 6-DoF VIO odometry.
+# ---------------------------------------------------------------------------
+
+def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    w1, x1, y1, z1 = (q1[..., i] for i in range(4))
+    w2, x2, y2, z2 = (q2[..., i] for i in range(4))
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], dim=-1)
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v by unit quaternion(s) q."""
+    qv = q[..., 1:]
+    qv, v = torch.broadcast_tensors(qv, v)
+    uv = torch.linalg.cross(qv, v)
+    uuv = torch.linalg.cross(qv, uv)
+    return v + 2.0 * (q[..., :1] * uv + uuv)
+
+
+def quat_from_yaw(yaw: torch.Tensor) -> torch.Tensor:
+    half = 0.5 * yaw
+    z = torch.zeros_like(half)
+    return torch.stack([torch.cos(half), z, z, torch.sin(half)], dim=-1)
+
+
+def yaw_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Extract yaw (z of ZYX euler) from a unit quaternion."""
+    w, x, y, z = (q[..., i] for i in range(4))
+    return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+
+
+def pose6_to_pose4(position: torch.Tensor, quat: torch.Tensor
+                   ) -> torch.Tensor:
+    """Project a 6-DoF pose (position + quaternion) to [x, y, z, yaw]."""
+    return make_pose(position, yaw_from_quat(quat))
+
+
+def tangent_base_from_unit(unit_dir: torch.Tensor) -> torch.Tensor:
+    """2x3 orthonormal basis of the tangent plane of a unit bearing vector
+    (rows orthogonal to ``unit_dir``; helper axis z unless |dir_z| > 0.99).
+    Shape (..., 3) -> (..., 2, 3)."""
+    near_z = torch.abs(unit_dir[..., 2]) > 0.99
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=unit_dir.dtype,
+                      device=unit_dir.device)
+    ez = torch.tensor([0.0, 0.0, 1.0], dtype=unit_dir.dtype,
+                      device=unit_dir.device)
+    helper = torch.where(near_z[..., None], ex, ez)
+    proj = torch.sum(helper * unit_dir, dim=-1, keepdim=True)
+    b1 = helper - unit_dir * proj
+    b1 = b1 / torch.linalg.vector_norm(b1, dim=-1, keepdim=True)
+    b2 = torch.linalg.cross(unit_dir, b1)
+    return torch.stack([b1, b2], dim=-2)
+
+
+def squared_mahalanobis(err: torch.Tensor, cov_inv: torch.Tensor
+                        ) -> torch.Tensor:
+    """err^T Σ^-1 err over the last axis; cov_inv (..., D, D)."""
+    return torch.einsum("...i,...ij,...j->...", err, cov_inv, err)
+
+
+def pose_error_4d(est: torch.Tensor, meas: torch.Tensor,
+                  sqrt_info: torch.Tensor) -> torch.Tensor:
+    """Whitened 4-vector pose error sqrt_info @ wrap(meas - est)
+    (factors.hpp:52-61: measurement minus estimate, yaw wrapped)."""
+    err = meas - est
+    err = torch.cat([err[..., :3], normalize_angle(err[..., 3:])], dim=-1)
+    return torch.einsum("...ij,...j->...i", sqrt_info, err)
 
 
 def tangent_base_from_unit_np(unit_dir):

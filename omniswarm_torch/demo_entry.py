@@ -11,7 +11,10 @@ and the median keyframe latency):
 - ``feature_demo_entry``: ``examples/run_demo.py`` (:37-80), 3 drones x 30
   frames over the feature-level ``VisualWorld(seed=7, n_landmarks=800,
   extent=8.0)``, a keyframe every 2nd frame, ``LossyBus(drop_rate=0.05,
-  seed=3)``. The report figures are left out.
+  seed=3)``; with ``report_dir``, each solved drone's accuracy report
+  (``eval.report.write_report``: ``summary.json``, and the figures where
+  matplotlib is installed) under ``report_dir/drone<d>/``, as the example
+  writes it (:80-91).
 - ``image_demo_entry``: ``examples/run_image_demo.py`` (:76-311) at its
   artifact's size, 5 drones x 30 frames, a keyframe every 2nd frame: 75
   keyframes of 4-direction stereo at 400 x 208 rendered in the textured
@@ -152,12 +155,15 @@ def _loop_error(kit: Kit, lp, gt):
     return err_p, err_y
 
 
-def score(kit: Kit, nodes, data, session: dict, guard: int) -> dict:
+def score(kit: Kit, nodes, data, session: dict, guard: int,
+          report: Callable = None) -> dict:
     """Solve every node once and score the run as the image demo does:
     loop precision by ground truth, recall over the revisit opportunities
     (ground-truth positions within 1.5 m; same-drone pairs at least
     ``guard`` frames apart), precision of the loops that survive PCM, and
-    each drone's cost and relative / absolute ATE against ground truth."""
+    each drone's cost and relative / absolute ATE against ground truth.
+    ``report(drone, estimate, gt, frames, vio)`` is called for each solved
+    drone (the example's report)."""
     metrics = kit.metrics
     gt = data.gt
     uniq = {}
@@ -213,6 +219,8 @@ def score(kit: Kit, nodes, data, session: dict, guard: int) -> dict:
             vio_relative_ate_cm=float(metrics.mean_relative_ate(v, g) * 100),
             mean_abs_ate_cm=float(np.mean(ates) * 100)))
         estimates.append(np.array(est.estimate))
+        if report is not None:
+            report(int(node.drone_id), est.estimate, g, idx, v)
 
     inlier_keys = set()
     for node in nodes:
@@ -255,9 +263,9 @@ def score(kit: Kit, nodes, data, session: dict, guard: int) -> dict:
     }
 
 
-def run_feature_demo(kit: Kit) -> dict:
+def run_feature_demo(kit: Kit, report: Callable = None) -> dict:
     """``examples/run_demo.py``'s session with the given package's kit;
-    returns ``score``'s metrics."""
+    returns ``score``'s metrics (``report``: see ``score``)."""
     D = FEATURE_DRONES
     data = kit.sim.generate(kit.sim.SimParams(
         num_drones=D, num_frames=FRAMES, seed=7, radius_range=(2.0, 4.0),
@@ -277,7 +285,8 @@ def run_feature_demo(kit: Kit) -> dict:
 
     session = drive_session(nodes, bus, data, KF_EVERY, make_keyframes)
     return score(kit, nodes, data, session,
-                 guard=FEATURE_FP["match_index_dist"] * KF_EVERY)
+                 guard=FEATURE_FP["match_index_dist"] * KF_EVERY,
+                 report=report)
 
 
 def run_image_demo(kit: Kit, prep, around_frame: Callable = None) -> dict:
@@ -309,11 +318,28 @@ def run_image_demo(kit: Kit, prep, around_frame: Callable = None) -> dict:
     return out
 
 
-def feature_demo_entry(device="cuda") -> dict:
-    """``examples/run_demo.py`` on the port (see the module docstring)."""
-    from omniswarm_torch.core.device import resolve_device
+def feature_demo_entry(device="cuda", report_dir=None) -> dict:
+    """``examples/run_demo.py`` on the port (see the module docstring);
+    with ``report_dir``, each solved drone's report directory is in its
+    ``per_drone`` entry as ``report``."""
+    import os
 
-    return run_feature_demo(port_kit(resolve_device(device)))
+    from omniswarm_torch.core.device import resolve_device
+    from omniswarm_torch.eval.report import write_report
+
+    dirs = {}
+
+    def report(drone, estimate, gt, frames, vio):
+        dirs[drone] = os.path.join(str(report_dir), f"drone{drone}")
+        write_report(dirs[drone], estimate, gt,
+                     times=np.asarray(frames, float), vio=vio)
+
+    res = run_feature_demo(port_kit(resolve_device(device)),
+                           report if report_dir is not None else None)
+    for d in res["per_drone"]:
+        if d["drone"] in dirs:
+            d["report"] = dirs[d["drone"]]
+    return res
 
 
 def image_demo_entry(device="cuda", prep=None, around_frame=None) -> dict:

@@ -6,6 +6,7 @@ lanes (``swarm_batch``), over an ``Axis`` (``collectives``) that
 from omniswarm_torch.parallel.collectives import Axis  # noqa: F401
 from omniswarm_torch.parallel.launch import run_ranks  # noqa: F401
 from omniswarm_torch.parallel.sharded_solver import (  # noqa: F401
+    graph_in_specs,
     graph_shard,
     make_mesh,
     shard_graph_factors,

@@ -15,9 +15,11 @@ from omniswarm_torch.convert import dense_graph_to_torch, factor_graph_to_torch
 from omniswarm_torch.parallel.collectives import Axis
 from omniswarm_torch.solver.dense import DenseGraph, lm_solve_dense
 from omniswarm_torch.solver.gauss_newton import SolveResult, lm_solve
-from omniswarm_torch.solver.graph import FactorGraph
+from omniswarm_torch.solver.graph import (DetectionFactors, FactorGraph,
+                                          RangeFactors, RelPoseFactors)
 
 FAMILIES = ("ranges", "odoms", "loops", "dets")
+SHARD, REPLICATE = "shard", "replicate"
 
 
 def make_mesh(device, group=None) -> Axis:
@@ -44,14 +46,33 @@ def shard_graph_factors(graph: FactorGraph, n_shards: int) -> FactorGraph:
     return _map_families(graph, pad)
 
 
+def graph_in_specs() -> FactorGraph:
+    """The layout of each leaf over the ranks, as a FactorGraph of markers
+    (the reference's PartitionSpec pytree, :43-55): the factor arrays are
+    split by rows (``SHARD``), the pose masks stay whole (``REPLICATE``)."""
+    def fam(cls):
+        return cls(*[SHARD] * len(cls._fields))
+
+    return FactorGraph(ranges=fam(RangeFactors), odoms=fam(RelPoseFactors),
+                       loops=fam(RelPoseFactors), dets=fam(DetectionFactors),
+                       pose_valid=REPLICATE, pose_fixed=REPLICATE,
+                       yaw_fixed=REPLICATE, ant_pos=REPLICATE)
+
+
 def graph_shard(graph: FactorGraph, axis) -> FactorGraph:
-    """This rank's contiguous slice of each (padded) factor family; the
-    pose masks stay whole."""
-    def rows(x):
+    """This rank's contiguous slice of each leaf that ``graph_in_specs``
+    shards (the padded factor families); the pose masks stay whole."""
+    def rows(x, spec):
+        if spec != SHARD:
+            return x
         n = x.shape[0] // axis.size
         return x[axis.index * n:(axis.index + 1) * n]
 
-    return _map_families(graph, rows)
+    specs = graph_in_specs()
+    return graph._replace(**{
+        name: type(fam)(*(rows(x, sp) for x, sp in
+                          zip(fam, getattr(specs, name))))
+        for name, fam in ((n, getattr(graph, n)) for n in FAMILIES)})
 
 
 def sharded_lm_solve(graph: FactorGraph, poses0, axis,

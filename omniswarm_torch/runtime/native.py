@@ -1,16 +1,24 @@
-"""The max-clique library of PCM, built from ``csrc/maxclique.cpp`` with g++.
+"""The host's native libraries, built from ``csrc/*.cpp`` with g++: PCM's
+max-clique and the UDP multicast socket of ``udp_transport``.
 
-Counterpart of ``omniswarm_tpu/runtime/native.py``. The C++ source is a
-copy of the reference's ``runtime/maxclique.cpp``; it is compiled on first
-use into ``build/native/`` beside the package (the file name carries a hash
-of the source and the flags, so an edited source rebuilds) and called
-through its C ABI::
+Counterpart of ``omniswarm_tpu/runtime/native.py``. The C++ sources are
+copies of the reference's ``runtime/maxclique.cpp`` and
+``runtime/udp_multicast.cpp``; each is compiled on first use into
+``build/native/`` beside the package (the file name carries a hash of the
+source and the flags, so an edited source rebuilds) and called through its
+C ABI::
 
     int max_clique_heu(const uint8_t* adj, int n, int* out)
+    int umc_open(const char* group, int port, int ttl, int loopback)
+    int umc_send(int fd, const char* group, int port, const uint8_t* data,
+                 int len)
+    int umc_recv(int fd, uint8_t* buf, int cap)
+    void umc_close(int fd)
 
 Unlike the reference, a failed build raises: the numpy greedy clique
 (``_max_clique_numpy``, kept for the tests) can pick a different clique and
-so change PCM's verdicts. This is host code, not a device kernel.
+so change PCM's verdicts, and there is no transport without the socket
+library. This is host code, not a device kernel.
 """
 from __future__ import annotations
 
@@ -25,37 +33,41 @@ import numpy as np
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 SOURCE = PKG_DIR / "csrc" / "maxclique.cpp"
+UDP_SOURCE = PKG_DIR / "csrc" / "udp_multicast.cpp"
 BUILD_DIR = PKG_DIR.parent / "build" / "native"
 CXX = "g++"
 CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
-_lib = None
+_lib = None          # the max-clique library, once loaded
+_udp_lib = None      # the UDP multicast library, once loaded
 
 
-def library_path() -> Path:
+def library_path(source: Path | None = None) -> Path:
+    source = source or SOURCE
     digest = hashlib.sha1(
-        SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libmaxclique-{digest}.so"
+        source.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
-def build() -> Path:
-    """Compile the library unless it is built; raises if the compiler fails
-    or is missing."""
-    out = library_path()
+def build(source: Path | None = None) -> Path:
+    """Compile ``source`` (the max-clique library by default) unless it is
+    built; raises if the compiler fails or is missing."""
+    source = source or SOURCE
+    out = library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [CXX, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
+    cmd = [CXX, *CXX_FLAGS, str(source), "-o", str(tmp)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=120)
     except FileNotFoundError as err:
         raise RuntimeError(f"the C++ compiler {CXX!r} was not found: it is "
-                           f"needed to build {SOURCE.name}") from err
+                           f"needed to build {source.name}") from err
     if proc.returncode != 0:
-        raise RuntimeError(f"{CXX} failed for {SOURCE}:\n{proc.stderr}")
+        raise RuntimeError(f"{CXX} failed for {source}:\n{proc.stderr}")
     os.replace(tmp, out)
     return out
 
@@ -71,6 +83,28 @@ def _load():
                 ctypes.POINTER(ctypes.c_int)]
             _lib = lib
         return _lib
+
+
+def udp_library():
+    """The UDP multicast library (built on first use) with its signatures."""
+    global _udp_lib
+    with _lock:
+        if _udp_lib is None:
+            lib = ctypes.CDLL(str(build(UDP_SOURCE)))
+            lib.umc_open.restype = ctypes.c_int
+            lib.umc_open.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int]
+            lib.umc_send.restype = ctypes.c_int
+            lib.umc_send.argtypes = [ctypes.c_int, ctypes.c_char_p,
+                                     ctypes.c_int, ctypes.c_char_p,
+                                     ctypes.c_int]
+            lib.umc_recv.restype = ctypes.c_int
+            lib.umc_recv.argtypes = [ctypes.c_int, ctypes.c_char_p,
+                                     ctypes.c_int]
+            lib.umc_close.restype = None
+            lib.umc_close.argtypes = [ctypes.c_int]
+            _udp_lib = lib
+        return _udp_lib
 
 
 def max_clique(adj: np.ndarray) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Simulator of the port (numpy only; imports no pipeline module)."""
+"""Simulator of the port (numpy) and the factor graph built from it."""
 from omniswarm_torch.sim.simulator import (  # noqa: F401
     DetMeas,
     LoopMeas,
@@ -6,3 +6,4 @@ from omniswarm_torch.sim.simulator import (  # noqa: F401
     SimParams,
     generate,
 )
+from omniswarm_torch.sim.pipeline import build_graph_from_sim  # noqa: F401

@@ -32,9 +32,9 @@ All of a tick's random draws come from ``tick_noise(tick_seed, Qb, C, Kb)``
 (``walk_noise(Kb)`` for the ``verify_batch=False`` walk): Gumbel noise from
 a ``torch.Generator`` seeded by the tick's seed. A test replaces the method
 with JAX's draw for the reference's keys and then gets the reference's
-hypotheses. ``match_viz_dir`` needs ``eval/match_viz.py``, which is not
-ported yet: setting it raises (and ``register_image``, which only feeds
-it, is left out).
+hypotheses. With ``match_viz_dir`` set, every accepted loop whose two
+keyframe images were given to ``register_image`` is drawn to a PNG there
+(``eval/match_viz.py``; loop_detector.cpp:695-785's DEBUG_IMAGE).
 """
 from __future__ import annotations
 
@@ -134,10 +134,6 @@ class LoopDetector:
                  *, global_dim: int = 4096, seed: int = 0,
                  match_viz_dir: Optional[str] = None,
                  device="cuda"):
-        if match_viz_dir is not None:
-            raise NotImplementedError(
-                "match_viz_dir needs eval/match_viz.py, which the port "
-                "gains with its evaluation slice (slice 6)")
         self.device = resolve_device(device)
         self.self_id = self_id
         self.p = params or FrontendParams()
@@ -162,6 +158,19 @@ class LoopDetector:
         self.num_queries = 0
         self.num_loops = 0
         self.ticks: List[Tuple[int, float]] = []
+        # opt-in loop-match PNG dumps
+        self.match_viz_dir = match_viz_dir
+        self._images: Dict[Tuple[int, int], np.ndarray] = {}
+
+    def register_image(self, drone_id: int, frame_id: int,
+                       image: np.ndarray) -> None:
+        """Keep a keyframe's image for the match images (opt-in; the
+        oldest goes past ``max_db_size``)."""
+        if self.match_viz_dir is None:
+            return
+        if len(self._images) >= self.p.max_db_size:
+            self._images.pop(next(iter(self._images)))
+        self._images[(int(drone_id), int(frame_id))] = np.asarray(image)
 
     # ------------------------------------------------------------------
     # random draws
@@ -459,9 +468,11 @@ class LoopDetector:
                 if (int(n_match[i, c]) < min_inliers
                         or int(n_valid[i, c]) < min_inliers):
                     continue
+                ka = len(kf.valid)
                 cand = self._accept_candidate(
                     kf, old, float(sim), min_inliers, dpose[i, c],
-                    int(n_inl[i, c]))
+                    int(n_inl[i, c]), idx_b[i, c, :ka], mask[i, c, :ka],
+                    inliers[i, c, :ka])
                 if cand is not None:
                     accepted.append(cand)
                     if len(accepted) >= p.max_loops_per_query:
@@ -542,12 +553,15 @@ class LoopDetector:
                 out = _verify(*query, *pad(old), hom, pnp,
                               pnp_err=self.p.pnp_reproj_err,
                               hom_err=self.p.homography_thresh_px)
-            (_idx_b, _raw, _mask, n_match, n_valid, dpose, n_inl,
-             _inliers) = _download(*out)
+            (idx_b, _raw, mask, n_match, n_valid, dpose, n_inl,
+             inliers) = _download(*out)
             if int(n_match[0]) < min_inliers or int(n_valid[0]) < min_inliers:
                 continue
+            ka = len(kf.valid)
             cand = self._accept_candidate(kf, old, float(sim), min_inliers,
-                                          dpose[0], int(n_inl[0]))
+                                          dpose[0], int(n_inl[0]),
+                                          idx_b[0, :ka], mask[0, :ka],
+                                          inliers[0, :ka])
             if cand is not None:
                 return [cand]
         return []
@@ -555,10 +569,12 @@ class LoopDetector:
     # ------------------------------------------------------------------
     def _accept_candidate(self, kf: KeyframeData, old: KeyframeData,
                           sim: float, min_inliers: int, dpose_new_in_old,
-                          n_inl: int) -> Optional[LoopCandidate]:
+                          n_inl: int, idx_b, mask, inliers
+                          ) -> Optional[LoopCandidate]:
         """Host gates on one verified candidate: inliers, relative yaw
         (modulo ``accept_loop_yaw_mod``) and position, odometry
-        consistency."""
+        consistency. ``idx_b``, ``mask`` and ``inliers`` (the query's
+        landmark rows) feed the match image only."""
         if n_inl < min_inliers:
             return None
         dyaw = wrap(dpose_new_in_old[3])
@@ -587,6 +603,8 @@ class LoopDetector:
             dpose=dpose_a_to_b.astype(np.float32),
             pos_std=float(np.sqrt(self.p.loop_cov_pos)),
             yaw_std=float(np.sqrt(self.p.loop_cov_ang)))
+        if self.match_viz_dir is not None:
+            self._dump_match_viz(kf, old, idx_b, mask, inliers, n_inl, sim)
         return LoopCandidate(edge=edge, num_inliers=n_inl, similarity=sim)
 
     def _odometry_consistent(self, kf: KeyframeData, old: KeyframeData,
@@ -607,3 +625,25 @@ class LoopDetector:
         cov_yaw = p.yaw_covariance_per_meter * length + p.loop_cov_ang
         md = float(np.sum(dp[:3] ** 2) / cov_pos + dp[3] ** 2 / cov_yaw)
         return md / 4.0 <= p.odometry_consistency_threshold
+
+    def _dump_match_viz(self, kf: KeyframeData, old: KeyframeData,
+                        idx_b: np.ndarray, match_mask: np.ndarray,
+                        inliers: np.ndarray, n_inl: int, sim: float) -> None:
+        """Write the accepted loop's match PNG if both images were
+        registered."""
+        import os
+
+        from omniswarm_torch.eval.match_viz import save_match_image
+
+        img_a = self._images.get((int(kf.drone_id), int(kf.frame_id)))
+        img_b = self._images.get((int(old.drone_id), int(old.frame_id)))
+        if img_a is None or img_b is None:
+            return
+        name = (f"loop_d{kf.drone_id}f{kf.frame_id}"
+                f"_d{old.drone_id}f{old.frame_id}.png")
+        save_match_image(
+            img_a, np.asarray(kf.kp_xy), img_b, np.asarray(old.kp_xy),
+            idx_b, match_mask, inliers,
+            os.path.join(self.match_viz_dir, name),
+            title=(f"d{kf.drone_id}f{kf.frame_id} ← d{old.drone_id}"
+                   f"f{old.frame_id}  sim={sim:.2f}  inl={n_inl}"))

@@ -314,6 +314,31 @@ def test_aliasing_precision(rng):
     assert n_false == 0 and n_true >= 2, (n_true, n_false)
 
 
-def test_match_viz_dir_needs_slice_6():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        TLoopDetector(0, device="cpu", match_viz_dir="viz")
+@pytest.mark.parametrize("verify_batch", [True, False])
+def test_match_viz_dir_needs_slice_6(scene, tmp_path, verify_batch):
+    """With slice 6 ported, ``match_viz_dir`` draws each accepted loop's
+    match image, as the reference's detector does (same file name, for
+    the same loop)."""
+    points, ldesc, g = scene
+    p = FrontendParams(verify_batch=verify_batch)
+    ref = LoopDetector(0, p, global_dim=GDIM, seed=0,
+                       match_viz_dir=str(tmp_path / "ref"))
+    port = use_jax_draws(TLoopDetector(
+        0, to_port_params(p), global_dim=GDIM, seed=0, device="cpu",
+        match_viz_dir=str(tmp_path / "port")), 0)
+    img = np.random.default_rng(0).uniform(0, 1, (60, 80)).astype(
+        np.float32)
+    for det in (ref, port):
+        det.register_image(0, 0, img)
+        det.register_image(0, 50, img.T[:60, :60])
+    both(ref, port, make_kf(0, 0, 0.0, [0, 0, 0, 0], points, g, ldesc))
+    res = both(ref, port, make_kf(0, 50, 5.0, [0.4, -0.3, 0.15, 0.06],
+                                  points, g, ldesc))
+    assert res is not None
+    want = sorted(q.name for q in (tmp_path / "ref").glob("loop_*.png"))
+    got = sorted((tmp_path / "port").glob("loop_*.png"))
+    assert want == [q.name for q in got] and len(got) == 1
+    assert got[0].stat().st_size > 1000
+    off = TLoopDetector(0, global_dim=GDIM, device="cpu")
+    off.register_image(0, 0, img)
+    assert not off._images

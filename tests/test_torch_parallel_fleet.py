@@ -71,8 +71,9 @@ def check_lanes(res, datas, references, lanes):
     assert res.poses.shape[0] == len(lanes)
     for b in lanes:
         cost = float(res.cost[b])
-        np.testing.assert_allclose(cost, jax_cost[b], rtol=0.05, atol=0.5)
-        np.testing.assert_allclose(cost, singles[b], rtol=0.05, atol=0.5)
+        # the reference dryrun's bar (__graft_entry__.py:147)
+        np.testing.assert_allclose(cost, jax_cost[b], rtol=5e-3)
+        np.testing.assert_allclose(cost, singles[b], rtol=5e-3)
         assert metrics.mean_relative_ate(np.asarray(res.poses[b]),
                                          datas[b].gt) < 0.1
 

@@ -61,11 +61,23 @@ def test_port_files_exist():
                  "omniswarm_torch/parallel/sharded_solver.py",
                  "omniswarm_torch/parallel/sharded_window.py",
                  "omniswarm_torch/parallel/swarm_batch.py",
-                 "omniswarm_torch/parallel_entry.py"):
+                 "omniswarm_torch/parallel_entry.py",
+                 "omniswarm_torch/runtime/udp_transport.py",
+                 "omniswarm_torch/runtime/run_node.py",
+                 "omniswarm_torch/runtime/drone_process.py",
+                 "omniswarm_torch/node_entry.py",
+                 "omniswarm_torch/eval/report.py",
+                 "omniswarm_torch/eval/pcm_debug.py",
+                 "omniswarm_torch/eval/match_viz.py",
+                 "omniswarm_torch/eval/calibration.py",
+                 "omniswarm_torch/io/flightlog.py",
+                 "omniswarm_torch/utils/cgraph.py",
+                 "omniswarm_torch/utils/diagnostics.py"):
         assert want in names
     for cu in ("fused_level", "grid_nms", "retrieval_top1"):
         assert (ROOT / f"omniswarm_torch/csrc/{cu}.cu").exists()
     assert (ROOT / "omniswarm_torch/csrc/maxclique.cpp").exists()
+    assert (ROOT / "omniswarm_torch/csrc/udp_multicast.cpp").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -182,6 +194,21 @@ def test_parallel_entry_points_raise_without_cuda(monkeypatch):
     # nccl takes CUDA tensors only: no CPU run through it
     with pytest.raises(ValueError, match="nccl"):
         run_ranks(call_each, 1, backend="nccl", device="cpu", args=([],))
+
+
+def test_node_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from omniswarm_torch.node_entry import paced_sessions
+    from omniswarm_torch.runtime import drone_process, run_node
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ROOT / "configs" / "swarm5.yaml"
+    for call in (lambda: run_node.main(["--config", str(cfg), "--no-udp"]),
+                 lambda: drone_process.main([
+                     "--scenario", str(tmp_path / "none.npz"),
+                     "--drone-id", "0", "--out", str(tmp_path / "o.npz")]),
+                 paced_sessions):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_cv2_only_inside_the_jpeg_codec():
