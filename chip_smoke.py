@@ -49,7 +49,8 @@ non-zero without printing a result.
    their anchors, dense against generic within 5e-2 in cost and 0.03 in
    relative ATE. Each path's ms per LM iteration is printed.
 5. K2 phase: the grid-NMS kernel against its plain version, bit-exact,
-   at the edge cases of K2_EDGE_CASES (NaN, r = 0 and 16, W % 4 != 0, a
+   at the edge cases of K2_EDGE_CASES (the training path's (1, 64, 96) and
+   (16, 64, 96), NaN, r = 0 and 16, W % 4 != 0, a
    tiny map, unaligned views, column tiles) and at (40, 208, 400), the
    shape of one front-end step, on random u**8 heat and on a real
    SuperPoint heat map of the path's first step. CUDA-event medians of the
@@ -166,9 +167,43 @@ non-zero without printing a result.
    relative ATE 0.3, at least one solved, loop edges crossed. (c) The
    feature demo's per-drone reports, written by 9a's first run: each
    summary.json's relative ATE equal to the demo's. One "node" JSON line.
+12a. The training path (omniswarm_torch.models.train_superpoint,
+   train_netvlad and train_entry), after 11a, held to the JAX package's
+   CPU anchors in TRAIN_ANCHORS (tools/train_anchors.py). (a) Under highp:
+   detection_metrics of superpoint_synthetic on 32 images, the textured,
+   flat and default-warp matching_metrics rows of superpoint_photo_v2 on 24
+   pairs each, retrieval_metrics of netvlad_v2_revisit on the 96-way hard
+   revisit tier; each count (tp, fp, fn; matches and correct ones; correct
+   retrievals) within TRAIN_FLIPS of its anchor, the flips printed. (b)
+   Under highp with cuDNN deterministic: 20 steps of train_detector, then
+   20 of train_descriptors, each from superpoint_synthetic (seed 0, batch
+   8, 64 x 96), the first 3 losses within 1e-4 of their anchors and the
+   rest within 5e-2 (TRAIN_LOSS_RTOL); a second
+   run bit-equal (losses and weights); the spread of a run without
+   deterministic cuDNN printed. (c) superpoint_main (the magicpoint stage,
+   Flax's init, 300 steps, batch 8, PCA fitted on 32 images): the last
+   logged loss < 0.6x the first, recall > 0.25, precision > 0.2 on 32
+   images (tests/test_train_superpoint.py:31-40). (d) train_netvlad at the
+   tool's width (v1, 16 places -> 32 views of 96 x 160, pool 256, 200
+   steps, its checkpoint written half-way and at the end) at seeds 0-2:
+   the means of the mean loss of the last 20 steps and of easy 64-way
+   recall@1 inside the JAX seeds' [min, max] widened by half its width (the
+   recall by at least 1/64). (c) and (d) run at PyTorch's default
+   precision (TF32 convolutions), as a user's training would: they are
+   held to bars. (e) Under highp: the checkpoints of (c) and (d) load into
+   pretrained_extractor / pretrained_global_extractor and reproduce the
+   forward of the in-memory weights rounded to f16 within 1e-5, the PCA
+   equal. (a)-(e) launch K2 only, at (1, 64, 96) and (16, 64, 96), each
+   checked against the plain version on the trained detector's heat; no
+   plain version, K1 or K3 runs. (f) ms per step, host render apart from
+   the synchronised device step, at the tools' batches: train_detector at
+   32 (line art; textured with homographic-adaptation labels),
+   train_descriptors at 16 (line art; textured), train_netvlad at 16
+   places (its views rendered on the card). One "training" JSON line.
 8. One JSON line with the solver paths' numbers, one with the kernels'
    numbers (K1's launches on the estimator path as launches_estimator, on
-   the node's threaded session as launches_node), then the result line.
+   the node's threaded session as launches_node; K1's, K2's and K3's on the
+   training path as launches_train), then the result line.
 """
 from __future__ import annotations
 
@@ -218,6 +253,7 @@ SOLVER_ANCHORS = dict(
 # smaller than its window, views 4 bytes off 16 (4-byte loads), maps wider
 # than one column tile, run-time radii on both vector widths.
 K2_EDGE_CASES = (
+    ((1, 64, 96), 4, "random", True), ((16, 64, 96), 4, "nan", True),
     ((2, 40, 64), 4, "nan", True), ((2, 33, 65), 0, "random", True),
     ((1, 7, 5), 4, "random", True), ((1, 20, 37), 16, "nan", True),
     ((40, 208, 400), 4, "random", False), ((3, 40, 64), 4, "nan", False),
@@ -749,6 +785,164 @@ NODE_MP_ATE = 0.3           # tests/test_multiprocess.py:52
 NODE_MP_PORT = 17801
 REPORT_ATE_RTOL = 1e-9      # a report's ATE against the demo's
 WORK_DIR = "build/chip_smoke"   # scratch files, inside the checkout
+# The training phase (12a): anchors from the JAX package on the CPU
+# (PYTHONPATH=. JAX_PLATFORMS=cpu python tools/train_anchors.py)
+TRAIN_ANCHORS = {'superpoint': {'detection': {'precision': 0.7677165354330708,
+                              'recall': 0.8369098712446352,
+                              'tp': 195,
+                              'fp': 59,
+                              'fn': 38},
+                'matching': {'textured': {'match_precision': 0.8805555555555555,
+                                          'matches': 360,
+                                          'correct': 317},
+                             'flat': {'match_precision': 0.8876712328767123,
+                                      'matches': 365,
+                                      'correct': 324},
+                             'easy': {'match_precision': 0.921832884097035,
+                                      'matches': 371,
+                                      'correct': 342}},
+                'detector_losses': [[0, 0.252052366733551],
+                                    [1, 0.1726822406053543],
+                                    [2, 0.34399306774139404],
+                                    [3, 0.15973849594593048],
+                                    [4, 0.22343170642852783],
+                                    [5, 0.29402250051498413],
+                                    [6, 0.4085695743560791],
+                                    [7, 0.2676301598548889],
+                                    [8, 0.23711085319519043],
+                                    [9, 0.2784562110900879],
+                                    [10, 0.3001287579536438],
+                                    [11, 0.2812025249004364],
+                                    [12, 0.22704750299453735],
+                                    [13, 0.380655974149704],
+                                    [14, 0.27042752504348755],
+                                    [15, 0.2795419991016388],
+                                    [16, 0.39351189136505127],
+                                    [17, 0.3841511309146881],
+                                    [18, 0.3065623342990875],
+                                    [19, 0.38080939650535583]],
+                'joint_losses': [[0,
+                                  0.5085117816925049,
+                                  0.25645941495895386,
+                                  0.252052366733551],
+                                 [1,
+                                  0.8174649477005005,
+                                  0.29654350876808167,
+                                  0.5209214091300964],
+                                 [2,
+                                  0.5322881937026978,
+                                  0.28127405047416687,
+                                  0.2510141432285309],
+                                 [3,
+                                  0.6417014598846436,
+                                  0.30574363470077515,
+                                  0.335957795381546],
+                                 [4,
+                                  0.7613773345947266,
+                                  0.4623754918575287,
+                                  0.29900187253952026],
+                                 [5,
+                                  0.9201656579971313,
+                                  0.33358752727508545,
+                                  0.5865781307220459],
+                                 [6,
+                                  0.8749579191207886,
+                                  0.47707679867744446,
+                                  0.39788109064102173],
+                                 [7,
+                                  0.6602506041526794,
+                                  0.37578216195106506,
+                                  0.2844684422016144],
+                                 [8,
+                                  0.7802667617797852,
+                                  0.3309856653213501,
+                                  0.44928112626075745],
+                                 [9,
+                                  0.8457125425338745,
+                                  0.3106546700000763,
+                                  0.5350579023361206],
+                                 [10,
+                                  0.8745291829109192,
+                                  0.41136306524276733,
+                                  0.46316611766815186],
+                                 [11,
+                                  1.0992143154144287,
+                                  0.40352627635002136,
+                                  0.695688009262085],
+                                 [12,
+                                  0.6113481521606445,
+                                  0.33891761302948,
+                                  0.27243050932884216],
+                                 [13,
+                                  0.634278416633606,
+                                  0.3042115867137909,
+                                  0.33006682991981506],
+                                 [14,
+                                  0.7209631204605103,
+                                  0.3830224275588989,
+                                  0.3379407227039337],
+                                 [15,
+                                  0.694089412689209,
+                                  0.27650731801986694,
+                                  0.41758209466934204],
+                                 [16,
+                                  0.5145219564437866,
+                                  0.2539141774177551,
+                                  0.2606078088283539],
+                                 [17,
+                                  0.5944993495941162,
+                                  0.29443103075027466,
+                                  0.30006828904151917],
+                                 [18,
+                                  0.7246479988098145,
+                                  0.37853842973709106,
+                                  0.3461095988750458],
+                                 [19,
+                                  0.8820382952690125,
+                                  0.344482421875,
+                                  0.5375558733940125]]},
+ 'netvlad': {'hard_revisit_96': {'recall_at_1': 0.78125,
+                                 'mean_margin': 0.13215492262194553,
+                                 'mean_pos_sim': 0.5607724189758301,
+                                 'mean_top_neg_sim': 0.42861748362580937,
+                                 'correct': 75},
+             'steps': 200,
+             'final_window': 20,
+             'runs': [{'seed': 0,
+                       'first_loss': 3.433899164199829,
+                       'last_loss': 2.9147491455078125,
+                       'final_loss': 3.0883267760276794,
+                       'easy_recall': 0.0625},
+                      {'seed': 1,
+                       'first_loss': 3.4339346885681152,
+                       'last_loss': 2.9925217628479004,
+                       'final_loss': 3.0236373066902162,
+                       'easy_recall': 0.046875},
+                      {'seed': 2,
+                       'first_loss': 3.4339821338653564,
+                       'last_loss': 2.8575520515441895,
+                       'final_loss': 3.010843741893768,
+                       'easy_recall': 0.0625}]}}
+TRAIN_FLIPS = 1             # (a) keypoints or matches the card may flip
+# (b) each of the 20 losses against its anchor: (steps, rtol) tiers. The
+# first 3 hold the forward, the losses and Adam's first two updates; after
+# them Adam amplifies the rounding of two devices' f32 convolutions (the
+# port on the CPU lies <= 6.5e-6 from the anchors over steps 0-4 and 7.9e-3
+# by step 18; on the H100 under highp 1.2e-7, 1.5e-6 and 9.4e-6 over steps
+# 0-2, then 2.0e-4 at step 3 and 1.9e-2 by step 17)
+TRAIN_LOSS_RTOL = ((3, 1e-4), (20, 5e-2))
+TRAIN_SCRATCH_STEPS = 300   # (c) tests/test_train_superpoint.py:31-40
+TRAIN_SCRATCH_BARS = dict(loss_ratio=0.6, recall=0.25, precision=0.2)
+# (d) the port's seeds (the anchors'), whose mean final loss and easy
+# recall must lie inside the JAX seeds' [min, max] widened by half its
+# width, and for the recall by at least one retrieval of the 64: the JAX
+# seeds' 3, 4 and 4 correct of 64 make a band one retrieval wide, where one
+# run's count has a binomial spread of about 2 (sqrt(64 p (1 - p)))
+TRAIN_NETVLAD_SEEDS = (0, 1, 2)
+TRAIN_RESOLUTION = {"final_loss": 0.0, "easy_recall": 1 / 64}
+TRAIN_RELOAD_ATOL = 1e-5    # (e) against the f16-rounded weights' forward
+TRAIN_TIMED_STEPS = 10      # (f) steps timed per row, after 2 warm-up steps
+K2_TRAIN_SHAPES = ((1, 64, 96), (16, 64, 96))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -841,6 +1035,30 @@ def k1_recording():
         yield levels
     finally:
         kernels.fused_level = launch
+
+
+@contextlib.contextmanager
+def k2_recording():
+    """Sets K2's and K3's counts and their plain versions' to 0 and records
+    the (B, H, W) of every K2 launch (the wrapper counts) into the Counter
+    it yields."""
+    from omniswarm_torch import kernels
+    from omniswarm_torch.ops.frontend_kernels import (
+        grid_nms, grid_nms_ref, retrieval_top1, retrieval_top1_ref)
+
+    launch, shapes = kernels.grid_nms, collections.Counter()
+
+    def recording_launch(heat, nms_dist):
+        shapes[tuple(heat.shape)] += 1
+        return launch(heat, nms_dist)
+
+    kernels.grid_nms = recording_launch
+    grid_nms.launches = retrieval_top1.launches = 0
+    grid_nms_ref.calls = retrieval_top1_ref.calls = 0
+    try:
+        yield shapes
+    finally:
+        kernels.grid_nms = launch
 
 
 def check_k1_levels(F: int, levels, iters: int) -> int:
@@ -2170,6 +2388,367 @@ def node_phase(reports: list) -> dict:
     return out
 
 
+def train_flips(name: str, got: dict, want: dict, keys) -> int:
+    """The largest count difference of a metric row against its anchor."""
+    flips = max(abs(got[k] - want[k]) for k in keys)
+    print(f"train (a) {name}: {json.dumps({k: got[k] for k in keys})} "
+          f"anchor {json.dumps({k: want[k] for k in keys})} flips {flips} "
+          f"(allowance {TRAIN_FLIPS})", flush=True)
+    check(flips <= TRAIN_FLIPS, f"train (a) {name}: {flips} flips")
+    return flips
+
+
+def train_bundled_metrics() -> dict:
+    """12a (a): the bundled checkpoints' metrics under highp against their
+    JAX-CPU anchors, at most TRAIN_FLIPS counts apart."""
+    from omniswarm_torch import train_entry as te
+    from omniswarm_torch.core.precision import highp
+    from omniswarm_torch.models import train_netvlad as tnv
+    from omniswarm_torch.models import train_superpoint as tsp
+    from omniswarm_torch.models.superpoint import WEIGHTS_DIR
+
+    want = TRAIN_ANCHORS["superpoint"]
+    out = {}
+    with highp():
+        det = tsp.detection_metrics(
+            te.read_superpoint(WEIGHTS_DIR / "superpoint_synthetic.npz"),
+            n_eval=32)
+        out["detection"] = dict(det, flips=train_flips(
+            "detection superpoint_synthetic", det, want["detection"],
+            ("tp", "fp", "fn")))
+        photo = te.read_superpoint(WEIGHTS_DIR / "superpoint_photo_v2.npz")
+        for row, kw in te.MATCHING_ROWS.items():
+            m = tsp.matching_metrics(photo, n_eval=24, **kw)
+            m["correct"] = round(m["match_precision"] * m["matches"])
+            out[f"matching_{row}"] = dict(m, flips=train_flips(
+                f"matching superpoint_photo_v2 {row}", m,
+                want["matching"][row], ("matches", "correct")))
+        hard = tnv.retrieval_metrics(
+            te.read_netvlad(WEIGHTS_DIR / "netvlad_v2_revisit.npz"),
+            n_places=96, max_rot=0.5, noise=0.06, scale=(0.8, 1.25),
+            revisit_offset=0.35, encoder_version=2)
+        hard["correct"] = round(hard["recall_at_1"] * 96)
+        out["hard_revisit_96"] = dict(hard, flips=train_flips(
+            "retrieval netvlad_v2_revisit hard 96-way", hard,
+            TRAIN_ANCHORS["netvlad"]["hard_revisit_96"], ("correct",)))
+    return out
+
+
+def continued_training(syn: dict, deterministic: bool):
+    """20 steps of train_detector, then 20 of train_descriptors, each from
+    ``syn`` (seed 0, batch 8, 64 x 96), under highp; cuDNN deterministic
+    or not. Returns (detector history, joint history, final params)."""
+    import torch
+
+    from omniswarm_torch.core.precision import highp
+    from omniswarm_torch.models import train_superpoint as tsp
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    kw = dict(steps=20, batch=8, h=64, w=96, seed=0, log_every=1,
+              params=syn)
+    try:
+        with highp():
+            _, hd = tsp.train_detector(**kw)
+            params, hj = tsp.train_descriptors(**kw)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return hd, hj, params
+
+
+def train_continued() -> dict:
+    """12a (b): continued training held to the anchor loss histories, two
+    deterministic runs bit-equal, the non-deterministic spread printed."""
+    import torch
+
+    from omniswarm_torch import train_entry as te
+    from omniswarm_torch.models.superpoint import WEIGHTS_DIR, net_state
+
+    syn = net_state(te.read_superpoint(
+        WEIGHTS_DIR / "superpoint_synthetic.npz"))
+    runs = [continued_training(syn, True) for _ in range(2)]
+    free = continued_training(syn, False)
+    a, b = runs
+    same = a[:2] == b[:2] and all(torch.equal(a[2][k], b[2][k])
+                                  for k in a[2])
+    check(same, "two deterministic continued-training runs differ")
+    want = TRAIN_ANCHORS["superpoint"]
+    out = {"bit_equal_deterministic": same}
+    tol = [next(r for n, r in TRAIN_LOSS_RTOL if i < n) for i in range(20)]
+    for name, got, ref, spread in (
+            ("detector", a[0], want["detector_losses"], free[0]),
+            ("joint", a[1], want["joint_losses"], free[1])):
+        rel = [abs(g[1] - r[1]) / abs(r[1]) for g, r in zip(got, ref)]
+        free_rel = [abs(f[1] - g[1]) / abs(g[1]) for f, g in zip(spread, got)]
+        print(f"train (b) {name}: losses {[g[1] for g in got]}; anchor "
+              f"{[r[1] for r in ref]}; rel {[f'{x:.1e}' for x in rel]} "
+              f"(tolerance {TRAIN_LOSS_RTOL}); without deterministic cuDNN "
+              f"rel {[f'{x:.1e}' for x in free_rel]}", flush=True)
+        out[name] = dict(
+            last_loss=got[-1][1], rel=rel, ok=len(got) == len(ref) == 20
+            and all(x <= t for x, t in zip(rel, tol)),
+            nondeterministic_spread=max(free_rel), free_rel=free_rel)
+    for name in ("detector", "joint"):
+        check(out[name]["ok"], f"train (b) {name}: losses "
+              f"{out[name]['rel']} from their anchors")
+    return out
+
+
+def band(values, key: str):
+    """The JAX seeds' [min, max] of ``key`` widened by half its width, and
+    by at least the metric's resolution."""
+    v = [r[key] for r in values]
+    pad = max((max(v) - min(v)) / 2, TRAIN_RESOLUTION[key])
+    return min(v) - pad, max(v) + pad
+
+
+def train_from_scratch() -> dict:
+    """12a (c), (d): the detector through ``superpoint_main`` (300 steps,
+    batch 8, Flax's init, PCA fitted on 32 images) against the reference
+    test's bars; ``train_netvlad`` at the tool's width against the band of
+    the JAX seeds. At PyTorch's default precision (TF32 convolutions), as
+    a user's training runs: both are held to bars, not to bits."""
+    from omniswarm_torch import train_entry as te
+    from omniswarm_torch.models import train_netvlad as tnv
+
+    t0 = time.perf_counter()
+    sp = te.superpoint_main([
+        "--steps", str(TRAIN_SCRATCH_STEPS), "--batch", "8",
+        "--fit-pca", "32", "--out", f"{WORK_DIR}/train/magicpoint.npz"])
+    first, last = sp["history_detector"][0][1], sp["history_detector"][-1][1]
+    det = sp["detection"]
+    bars = TRAIN_SCRATCH_BARS
+    out = {"detector": dict(first_loss=first, last_loss=last,
+                            detection=det, seconds=time.perf_counter() - t0,
+                            out=sp["out"], pca_explained=sp["pca_explained"],
+                            params=sp["params"])}
+    print(f"train (c) detector from scratch: loss {first!r} -> {last!r}, "
+          f"{json.dumps(det)}, {out['detector']['seconds']:.1f} s",
+          flush=True)
+    check(last < bars["loss_ratio"] * first, "train (c): the loss fell from "
+          f"{first} to {last} only")
+    check(det["recall"] > bars["recall"] and det["precision"] >
+          bars["precision"], f"train (c): detection {det}")
+
+    t0 = time.perf_counter()
+    nv = TRAIN_ANCHORS["netvlad"]
+    runs = []
+    for seed in TRAIN_NETVLAD_SEEDS:
+        path = f"{WORK_DIR}/train/netvlad_{seed}.npz"
+        params, hist = tnv.train_netvlad(
+            steps=nv["steps"], seed=seed, log_every=1,
+            save_every=nv["steps"] // 2, save_path=path)
+        losses = [loss for _, loss in hist]
+        easy = tnv.retrieval_metrics(params, encoder_version=1)
+        runs.append(dict(seed=seed, first_loss=losses[0],
+                         last_loss=losses[-1],
+                         final_loss=sum(losses[-nv["final_window"]:])
+                         / nv["final_window"],
+                         easy_recall=easy["recall_at_1"], out=path))
+        print(f"train (d) netvlad seed {seed}: {json.dumps(runs[-1])}",
+              flush=True)
+        if seed == TRAIN_NETVLAD_SEEDS[0]:
+            first = dict(out=path, params=params)
+    out["netvlad"] = dict(runs=runs, seconds=time.perf_counter() - t0,
+                          **first)
+    for key in ("final_loss", "easy_recall"):
+        mean = sum(r[key] for r in runs) / len(runs)
+        lo, hi = band(nv["runs"], key)
+        out["netvlad"][key] = mean
+        print(f"train (d) netvlad mean {key} {mean!r} band [{lo!r}, {hi!r}] "
+              f"(JAX seeds {[r[key] for r in nv['runs']]})", flush=True)
+        check(lo <= mean <= hi, f"train (d): mean {key} {mean} outside "
+              f"[{lo}, {hi}]")
+    print(f"train (d) netvlad: {len(runs)} x {nv['steps']} steps "
+          f"{out['netvlad']['seconds']:.1f} s", flush=True)
+    return out
+
+
+def train_reload(scratch: dict) -> dict:
+    """12a (e): the checkpoints written in (c) and (d) load into
+    ``pretrained_extractor`` / ``pretrained_global_extractor`` and give the
+    forward of the in-memory weights rounded to f16."""
+    import torch
+
+    from omniswarm_torch.core.precision import highp
+    from omniswarm_torch.models import train_netvlad as tnv
+    from omniswarm_torch.models import train_superpoint as tsp
+    from omniswarm_torch.models.netvlad import pretrained_global_extractor
+    from omniswarm_torch.models.superpoint import pretrained_extractor
+
+    f16 = lambda state: {k: v.half().float() for k, v in state.items()}
+    rng = np.random.default_rng(11)
+    imgs, _ = tsp.make_batch(rng, 4, 64, 96)
+    x = tsp.to_images(imgs, "cuda")
+    views = tsp.to_images(tnv.PlacePool(2, seed=12).batch(2), "cuda")
+    sp_params = scratch["detector"]["params"]
+    out = {}
+    with highp(), torch.no_grad():
+        ext = pretrained_extractor("cuda", path=scratch["detector"]["out"])
+        mem = tsp.load_superpoint(sp_params, 0, "cuda")
+        rounded = tsp.load_superpoint(f16(sp_params), 0, "cuda")
+        got, exact, want = ext.net(x), mem(x), rounded(x)
+        out["superpoint"] = dict(
+            heat_err=float((got[0] - want[0]).abs().max()),
+            desc_err=float((got[1] - want[1]).abs().max()),
+            heat_err_f32=float((got[0] - exact[0]).abs().max()),
+            pca_equal=bool(torch.equal(
+                ext.pca_components.cpu(),
+                sp_params["pca_components"].half().float())))
+        gext = pretrained_global_extractor("cuda",
+                                           path=scratch["netvlad"]["out"])
+        nv_params = scratch["netvlad"]["params"]
+        got = gext(views)
+        want = tnv.load_netvlad(f16(nv_params), 1, 0, "cuda")(views)
+        exact = tnv.load_netvlad(nv_params, 1, 0, "cuda")(views)
+        out["netvlad"] = dict(desc_err=float((got - want).abs().max()),
+                              desc_err_f32=float((got - exact).abs().max()))
+    print(f"train (e) reload {json.dumps(out)} (tolerance "
+          f"{TRAIN_RELOAD_ATOL} against the f16-rounded weights)", flush=True)
+    check(max(out["superpoint"]["heat_err"], out["superpoint"]["desc_err"],
+              out["netvlad"]["desc_err"]) <= TRAIN_RELOAD_ATOL
+          and out["superpoint"]["pca_equal"], f"train (e): {out}")
+    return out
+
+
+def train_step_times(card: str) -> list:
+    """12a (f): ms per step, host render apart from the device step (upload,
+    forward, backward, Adam; synchronised), after 2 warm-up steps, at the
+    tools' batch sizes and PyTorch's default precision."""
+    import torch
+
+    from omniswarm_torch.models import train_netvlad as tnv
+    from omniswarm_torch.models import train_superpoint as tsp
+
+    def timed(fn):
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    rows = []
+    model = tsp.load_superpoint(None, 0, "cuda")
+    opt = tsp.adam(model, 1e-3)
+    rng = np.random.default_rng(0)
+
+    def upload(imgs, labels):
+        return (tsp.to_images(imgs, "cuda"),
+                torch.from_numpy(labels).long().cuda())
+
+    def detector(batch_fn, ha):
+        def render():
+            imgs, labels = batch_fn(rng, 32, 64, 96)
+            if ha:
+                labels = tsp.homographic_adaptation_labels(model, imgs, rng)
+            return imgs, labels
+        return render, lambda b: tsp.detector_update(model, opt, *upload(*b))
+
+    def joint(batch_fn, render_fn, scale):
+        def render():
+            return batch_fn(rng, 16, 64, 96), tsp.make_warped_pairs(
+                rng, 16, 64, 96, max_rot=0.55, scale=scale,
+                render_fn=render_fn)
+
+        def step(b):
+            (imgs, labels), (ia, ib, T) = b
+            return tsp.joint_update(
+                model, opt, *upload(imgs, labels), tsp.to_images(ia, "cuda"),
+                tsp.to_images(ib, "cuda"), torch.from_numpy(T).cuda())
+        return render, step
+
+    cases = {
+        "train_detector magicpoint batch 32": detector(tsp.make_batch, False),
+        "train_detector photometric batch 32 (HA labels)": detector(
+            tsp.make_batch_textured, True),
+        "train_descriptors magicpoint batch 16": joint(
+            tsp.make_batch, None, (1.0, 1.0)),
+        "train_descriptors photometric batch 16": joint(
+            tsp.make_batch_textured, tsp.render_mixed, (0.8, 1.25)),
+    }
+    pool = tnv.PlacePool(256, seed=0)
+    places = torch.from_numpy(np.stack(pool.places)).cuda()
+    nvmodel = tnv.load_netvlad(None, 1, 0, "cuda")
+    nvopt = tsp.adam(nvmodel, 3e-4)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def nv_render():
+        idx = torch.from_numpy(rng.choice(256, 16, replace=False)).cuda()
+        return torch.cat([tnv.device_render_views(
+            places, idx, tnv.view_draws(16, 96, 160, gen), 96, 160)
+            for _ in range(2)])
+    cases["train_netvlad 16 places (render on the card)"] = (
+        nv_render, lambda v: tnv.netvlad_update(nvmodel, nvopt, v))
+    for name, (render, step) in cases.items():
+        times = []
+        for i in range(TRAIN_TIMED_STEPS + 2):
+            b, r_ms = timed(render)
+            _, s_ms = timed(lambda: step(b))
+            if i >= 2:
+                times.append((r_ms, s_ms))
+        r_ms = sum(t[0] for t in times) / len(times)
+        s_ms = sum(t[1] for t in times) / len(times)
+        rows.append(dict(name=name, render_ms=r_ms, step_ms=s_ms,
+                         total_ms=r_ms + s_ms))
+        print(f"train (f) {name}: render {r_ms:.2f} ms + device step "
+              f"{s_ms:.2f} ms a step ({card})", flush=True)
+    return rows
+
+
+def training_phase(card: str) -> dict:
+    """Phase 12a: the training path (see the docstring)."""
+    import torch
+
+    from omniswarm_torch import kernels
+    from omniswarm_torch.ops.frontend_kernels import (
+        grid_nms, grid_nms_ref, retrieval_top1, retrieval_top1_ref)
+    from omniswarm_torch.models import train_superpoint as tsp
+    from omniswarm_torch.solver.fused_level import fused_reduction_level
+
+    t0 = time.perf_counter()
+    out = {}
+    with k1_recording() as levels, k2_recording() as shapes:
+        out["bundled"] = train_bundled_metrics()
+        out["continued"] = train_continued()
+        scratch = train_from_scratch()
+        out["reload"] = train_reload(scratch)
+    out["launches"] = dict(k1=fused_reduction_level.launches,
+                           k2=grid_nms.launches, k3=retrieval_top1.launches)
+    out["k2_shapes"] = [[*s, n] for s, n in sorted(shapes.items())]
+    check(grid_nms_ref.calls == 0 and retrieval_top1_ref.calls == 0,
+          "a plain kernel version ran on the training path")
+    check(out["launches"]["k1"] == 0 and out["launches"]["k3"] == 0
+          and not levels and out["launches"]["k2"] > 0,
+          f"training path launches {out['launches']}")
+    check(set(shapes) == set(K2_TRAIN_SHAPES),
+          f"K2 on the training path at {dict(shapes)}")
+    # K2 against its plain version at the path's shapes, on heat maps of
+    # the trained detector
+    checked = []
+    with torch.no_grad():
+        net = tsp.load_superpoint(scratch["detector"]["params"], 0, "cuda")
+        for B, H, W in K2_TRAIN_SHAPES:
+            imgs, _ = tsp.make_batch(np.random.default_rng(B), B, H, W)
+            heat = net(tsp.to_images(imgs, "cuda"))[0].contiguous()
+            got = kernels.grid_nms(heat, 4)
+            ref = grid_nms_ref(heat, 4)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"K2 disagrees on the training "
+                  f"path's heat at {(B, H, W)}")
+            checked.append(dict(shape=[B, H, W], r=4, kind="train_heat",
+                                aligned=True, kept=int((got > 0).sum()),
+                                max_abs_err=float((got - ref).abs().max())))
+    out["k2_checked"] = checked
+    for v in scratch.values():
+        v.pop("params", None)
+    out["scratch"] = scratch
+    out["path_seconds"] = time.perf_counter() - t0
+    out["step_times"] = train_step_times(card)
+    out["card"] = card
+    out["seconds"] = time.perf_counter() - t0
+    print("training", json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
     try:
@@ -2244,6 +2823,12 @@ def main() -> int:
           f"{node['paced']['k1_launches']}/{node['k2_launches']}/"
           f"{node['k3_launches']} on the node's threaded path", flush=True)
 
+    t0 = time.perf_counter()
+    train = training_phase(card)
+    print(f"training phase {train['seconds']:.1f} s: K1/K2/K3 launches "
+          f"{train['launches']['k1']}/{train['launches']['k2']}/"
+          f"{train['launches']['k3']} on the training path", flush=True)
+
     main = next(r for r in rows
                 if (r["m"], r["t"], r["branch"]) == (40, 32, "warm"))
     k2_main = next(r for r in k2_rows if r["input"] == "superpoint_heat")
@@ -2270,6 +2855,7 @@ def main() -> int:
         "launches_estimator": est["k1_launches"],
         "launches_demo": demos["image"]["k1_launches"],
         "launches_node": node["paced"]["k1_launches"],
+        "launches_train": train["launches"]["k1"],
         "shapes": rows,
         "checked": k1_checked + est["k1_checked"]
         + node["paced"]["k1_checked"],
@@ -2283,7 +2869,9 @@ def main() -> int:
         "launches": fe["k2_launches"],
         "launches_demo": demos["image"]["k2_launches"],
         "launches_node": node["k2_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
+        "launches_train": train["launches"]["k2"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows
+                           + train["k2_checked"]),
         "ms": k2_main["ms"],
         "cold_ms": k2_main["cold_ms"],
         "plain_ms": k2_main["plain_ms"],
@@ -2291,7 +2879,7 @@ def main() -> int:
         "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"],
         "shapes": k2_rows,
-        "checked": k2_checked,
+        "checked": k2_checked + train["k2_checked"],
     }, {
         "name": "retrieval_top1",
         "route": "cuda",
@@ -2301,6 +2889,7 @@ def main() -> int:
         "launches": fe["k3_launches"],
         "launches_demo": demos["image"]["k3_launches"],
         "launches_node": node["k3_launches"],
+        "launches_train": train["launches"]["k3"],
         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
         "ms": k3_main["ms"],
         "plain_ms": k3_main["plain_ms"],

@@ -19,6 +19,11 @@ them) and return the ``state_dict`` of the port's extractor:
 - GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
 - every array to f32 (the checkpoints are f16), as the reference's
   ``jnp.asarray(raw[k], jnp.float32)`` does.
+
+``superpoint_params_to_flax`` and ``netvlad_params_to_flax`` are their
+inverses: a port state dict to the flat Flax layout (OIHW -> HWIO, a 2-D
+``weight`` -> a Dense ``kernel`` (in, out), a 1-D ``weight`` -> a
+GroupNorm ``scale``), as f32 numpy arrays, for the checkpoint writers.
 """
 from __future__ import annotations
 
@@ -93,6 +98,20 @@ def _flax_leaf(path: str, value: np.ndarray):
     return ".".join(mods + [leaf]), torch.from_numpy(np.ascontiguousarray(v))
 
 
+def _torch_leaf(key: str, value: torch.Tensor):
+    """(flat Flax path, f32 numpy array) of one port state-dict entry."""
+    *mods, leaf = key.split(".")
+    v = value.detach().to("cpu", torch.float32).numpy()
+    if leaf == "weight":
+        if v.ndim == 4:
+            leaf, v = "kernel", v.transpose(2, 3, 1, 0)
+        elif v.ndim == 2:
+            leaf, v = "kernel", v.T
+        else:
+            leaf = "scale"
+    return "/".join(["params", *mods, leaf]), np.ascontiguousarray(v)
+
+
 def superpoint_params_from_flax(flat: Mapping[str, np.ndarray]
                                 ) -> Dict[str, torch.Tensor]:
     """``SuperPointExtractor`` state_dict from flat Flax SuperPoint params
@@ -114,3 +133,27 @@ def netvlad_params_from_flax(flat: Mapping[str, np.ndarray]
     params (``params/encoder/stem/kernel`` ...)."""
     return dict(("model." + k, t) for k, t in
                 (_flax_leaf(p, v) for p, v in flat.items()))
+
+
+def superpoint_params_to_flax(params: Mapping[str, torch.Tensor]
+                              ) -> Dict[str, np.ndarray]:
+    """Flat Flax SuperPoint params (``params/conv1a/kernel`` ...) plus
+    ``pca_components`` / ``pca_mean`` when present, from a ``SuperPoint``
+    or ``SuperPointExtractor`` state_dict."""
+    out = {}
+    for key, value in params.items():
+        if key in ("pca_components", "pca_mean"):
+            out[key] = value.detach().to("cpu", torch.float32).numpy()
+        else:
+            path, v = _torch_leaf(key[4:] if key.startswith("net.") else key,
+                                  value)
+            out[path] = v
+    return out
+
+
+def netvlad_params_to_flax(params: Mapping[str, torch.Tensor]
+                           ) -> Dict[str, np.ndarray]:
+    """Flat Flax MobileNetVLAD params (``params/encoder/stem/kernel`` ...)
+    from a ``MobileNetVLAD`` or ``GlobalDescriptorExtractor`` state_dict."""
+    return dict(_torch_leaf(k[6:] if k.startswith("model.") else k, v)
+                for k, v in params.items())

@@ -16,6 +16,10 @@ Where the reference differs from PyTorch's defaults:
   here pads explicitly with that formula and convolves with ``padding=0``.
 - Flax's GroupNorm epsilon is 1e-6 (PyTorch's default is 1e-5).
 - Normalisations divide by ``max(norm, 1e-8)``.
+
+For training (``models/train_netvlad.py``): ``init_mobilenetvlad`` draws
+Flax's default initialisation and ``save_netvlad_npz`` writes the
+reference's checkpoint layout.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from omniswarm_torch.core.device import resolve_device
-from omniswarm_torch.models.superpoint import WEIGHTS_DIR, _unit
+from omniswarm_torch.models.superpoint import (WEIGHTS_DIR, _unit,
+                                               lecun_normal_)
 
 DEFAULT_WEIGHTS = WEIGHTS_DIR / "netvlad_v2_revisit.npz"
 # bundled checkpoint architecture: K*C = 8*512 = 4096 = out_dim, no proj
@@ -187,6 +192,50 @@ class GlobalDescriptorExtractor(nn.Module):
     @torch.no_grad()
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return self.model(images)
+
+
+def init_mobilenetvlad(generator: torch.Generator,
+                       encoder_version: int = 1) -> MobileNetVLAD:
+    """A MobileNetVLAD of the bundled architecture (on the CPU) with Flax's
+    default initialisation drawn from ``generator``:
+    ``lecun_normal`` conv and Dense kernels (a depthwise kernel's fan_in is
+    9), zero biases, GroupNorm scale 1 and bias 0, and centroids drawn
+    from N(0, 0.1^2) (``netvlad.py:116-118`` of the reference)."""
+    model = MobileNetVLAD(BUNDLED_CLUSTERS, BUNDLED_OUT_DIM, False,
+                          encoder_version)
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            lecun_normal_(mod.weight, generator)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.GroupNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+    with torch.no_grad():
+        model.vlad.centroids.normal_(0.0, 0.1, generator=generator)
+    return model
+
+
+def model_state(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The ``MobileNetVLAD`` state_dict inside ``params``: that state dict
+    itself (``encoder.stem.weight`` ...) or an extractor's
+    (``model.encoder.stem.weight`` ...)."""
+    return {(k[6:] if k.startswith("model.") else k): v
+            for k, v in params.items()}
+
+
+def save_netvlad_npz(params: Dict[str, torch.Tensor], path, *,
+                     encoder_version: int = 1) -> None:
+    """Write ``params`` (a ``MobileNetVLAD`` or extractor state_dict) as
+    the reference's ``save_netvlad_npz`` does: flat Flax paths in f16 and
+    ``__encoder_version``, compressed. The reference's
+    ``load_netvlad_npz`` and ``netvlad_meta`` read it."""
+    from omniswarm_torch.convert import netvlad_params_to_flax
+
+    out = {k: v.astype(np.float16)
+           for k, v in netvlad_params_to_flax(params).items()}
+    out["__encoder_version"] = np.asarray(encoder_version, np.int32)
+    np.savez_compressed(path, **out)
 
 
 def load_netvlad_npz(path) -> Dict[str, np.ndarray]:

@@ -11,11 +11,16 @@ the PCA 256 -> 64. Weights come from the reference's bundled Flax checkpoint
 
 Every 3x3 convolution here has stride 1, where Flax's ``padding="SAME"``
 is the symmetric ``padding=1``.
+
+For training (``models/train_superpoint.py``): ``forward(return_logits=True)``
+adds the raw detector logits, ``init_superpoint`` draws Flax's default
+initialisation, and ``save_flax_npz`` / ``load_params_npz`` write the
+reference's checkpoint layout and read torch-original OIHW weights.
 """
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict
 
 import numpy as np
 import torch
@@ -58,8 +63,10 @@ class SuperPoint(nn.Module):
         for name, cin, cout, k in _CONVS:
             self.add_module(name, nn.Conv2d(cin, cout, k, padding=k // 2))
 
-    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
+    def forward(self, images: torch.Tensor, return_logits: bool = False):
+        """(heat, desc) or, with ``return_logits``, (heat, desc, logits)
+        where logits (B, H/8, W/8, 65) are the raw detector logits,
+        channels-last as the reference returns them (a view)."""
         x = images
         for a, b in (("conv1a", "conv1b"), ("conv2a", "conv2b"),
                      ("conv3a", "conv3b")):
@@ -77,8 +84,49 @@ class SuperPoint(nn.Module):
         heat = heat.reshape(B, Hc * 8, Wc * 8)
 
         desc = self.convDb(F.relu(self.convDa(x)))
-        desc = _unit(desc, dim=1)
-        return heat, desc.permute(0, 2, 3, 1)
+        desc = _unit(desc, dim=1).permute(0, 2, 3, 1)
+        if return_logits:
+            return heat, desc, logits.permute(0, 2, 3, 1)
+        return heat, desc
+
+
+# Flax's default kernel init, lecun_normal: a normal truncated to +-2 std,
+# rescaled so that the truncated draw has variance 1 / fan_in
+TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator
+                  ) -> torch.Tensor:
+    """Fill a conv (O, I/groups, kh, kw) or linear (O, I) weight in place
+    with Flax's ``lecun_normal``; fan_in = (I/groups) kh kw, so a depthwise
+    3x3 kernel has fan_in 9."""
+    fan_in = weight[0].numel()
+    std = (1.0 / fan_in) ** 0.5 / TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
+
+
+def init_superpoint(generator: torch.Generator) -> SuperPoint:
+    """A SuperPoint (on the CPU) with Flax's default initialisation drawn
+    from ``generator``: ``lecun_normal`` kernels and zero biases (PyTorch's
+    own default, kaiming-uniform weights and uniform biases, starts
+    training from another distribution)."""
+    net = SuperPoint()
+    for name, *_ in _CONVS:
+        conv = getattr(net, name)
+        lecun_normal_(conv.weight, generator)
+        nn.init.zeros_(conv.bias)
+    return net
+
+
+def net_state(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The ``SuperPoint`` state_dict inside ``params``: either that state
+    dict itself (``conv1a.weight`` ...) or an extractor's
+    (``net.conv1a.weight`` ...); PCA entries are dropped."""
+    return {(k[4:] if k.startswith("net.") else k): v
+            for k, v in params.items()
+            if k not in ("pca_components", "pca_mean")}
 
 
 class SuperPointExtractor(nn.Module):
@@ -126,6 +174,37 @@ def load_flax_npz(path) -> Dict[str, np.ndarray]:
     raw = np.load(path)
     return {(k[2:] if k.startswith("__") else k):
             np.asarray(raw[k], np.float32) for k in raw.files}
+
+
+def save_flax_npz(params: Dict[str, torch.Tensor], path) -> None:
+    """Write ``params`` (a ``SuperPoint`` or extractor state_dict, with
+    ``pca_components`` / ``pca_mean`` when present) as the reference's
+    ``save_flax_npz`` does: flat ``params/<conv>/kernel`` (HWIO) and
+    ``bias`` in f16, the PCA as ``__pca_components`` / ``__pca_mean``,
+    compressed. The reference's ``load_flax_npz`` reads it."""
+    from omniswarm_torch.convert import superpoint_params_to_flax
+
+    flat = superpoint_params_to_flax(params)
+    np.savez_compressed(path, **{
+        (f"__{k}" if k in ("pca_components", "pca_mean") else k):
+        v.astype(np.float16) for k, v in flat.items()})
+
+
+def load_params_npz(path) -> Dict[str, torch.Tensor]:
+    """Extractor state_dict (``net.conv1a.weight`` ..., plus the PCA when
+    the file has one) from a torch-original checkpoint: ``<conv>.weight``
+    in OIHW and ``<conv>.bias``, as ``tools/convert_superpoint.py``
+    writes them; f32."""
+    raw = np.load(path)
+    out = {}
+    for name, *_ in _CONVS:
+        for leaf in ("weight", "bias"):
+            out[f"net.{name}.{leaf}"] = torch.from_numpy(
+                np.array(raw[f"{name}.{leaf}"], np.float32))
+    for extra in ("pca_components", "pca_mean"):
+        if extra in raw.files:
+            out[extra] = torch.from_numpy(np.array(raw[extra], np.float32))
+    return out
 
 
 def pretrained_extractor(device="cuda", *, path=DEFAULT_WEIGHTS,

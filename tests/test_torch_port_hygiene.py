@@ -72,7 +72,10 @@ def test_port_files_exist():
                  "omniswarm_torch/eval/calibration.py",
                  "omniswarm_torch/io/flightlog.py",
                  "omniswarm_torch/utils/cgraph.py",
-                 "omniswarm_torch/utils/diagnostics.py"):
+                 "omniswarm_torch/utils/diagnostics.py",
+                 "omniswarm_torch/models/train_superpoint.py",
+                 "omniswarm_torch/models/train_netvlad.py",
+                 "omniswarm_torch/train_entry.py"):
         assert want in names
     for cu in ("fused_level", "grid_nms", "retrieval_top1"):
         assert (ROOT / f"omniswarm_torch/csrc/{cu}.cu").exists()
@@ -207,6 +210,25 @@ def test_node_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                      "--scenario", str(tmp_path / "none.npz"),
                      "--drone-id", "0", "--out", str(tmp_path / "o.npz")]),
                  paced_sessions):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_train_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from omniswarm_torch import train_entry
+    from omniswarm_torch.models import train_netvlad as tnv
+    from omniswarm_torch.models import train_superpoint as tsp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = str(tmp_path / "ckpt.npz")
+    for call in (tsp.train_detector, tsp.train_descriptors,
+                 tnv.train_netvlad,
+                 lambda: tsp.detection_metrics({}),
+                 lambda: tsp.matching_metrics({}),
+                 lambda: tsp.sample_raw_descriptors({}),
+                 lambda: tnv.retrieval_metrics({}),
+                 lambda: train_entry.superpoint_main(["--out", out]),
+                 lambda: train_entry.netvlad_main(["--out", out])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
