@@ -12,14 +12,15 @@ non-zero without printing a result.
 2. K1 phase: the fused cyclic-reduction level kernel against its plain
    PyTorch version on the card (rtol = atol = 2e-4 on all 7 outputs) at
    every level shape the solves launch (m=40 with t=32, 16, 8, 4 at F=100;
-   m=80 with t=128, 64, 32, 16, 8, 4 at F=1024) and at odd widths and single
-   pairs, each on the warm, guard-fallback and NaN-start branches. Timed:
-   the warm branch at every level shape, the fallback branch at (40, 32),
-   (80, 128) and (80, 4) and the NaN start at (80, 4). Each timed row gives
-   the CTAs per pair (cluster size), the kernel's CUDA-event median and the
-   least time the card could take (bytes over 3.35 TB/s, FLOPs over
-   67 TFLOP/s FP32); the warm and fallback rows at (40, 32) and (80, 128)
-   also time the wrapper and the plain version.
+   m=80 with t=128, 64, 32, 16, 8, 4 at F=1024, and t=256 at 10 x 1024)
+   and at odd widths and single pairs, each on the warm, guard-fallback and
+   NaN-start branches. Timed: the warm branch at every level shape, the
+   fallback branch at (40, 32), (80, 128), (80, 4) and (80, 256) and the
+   NaN start at (80, 4) and (80, 256). Each timed row gives the CTAs per
+   pair (cluster size), the kernel's CUDA-event median and the least time
+   the card could take (bytes over 3.35 TB/s, FLOPs over 67 TFLOP/s FP32);
+   the warm and fallback rows at (40, 32) and (80, 128) and the warm row at
+   (80, 256) also time the wrapper and the plain version.
 3. Main path: omniswarm_torch.entry.entry() at F=100, D=5, seed 0,
    20 LM iterations. Checks a finite cost below the initial one, within 1%
    of the reference's 177.25, relative ATE < 0.08, 4 kernel launches per
@@ -50,14 +51,14 @@ non-zero without printing a result.
    relative ATE. Each path's ms per LM iteration is printed.
 5. K2 phase: the grid-NMS kernel against its plain version, bit-exact,
    at the edge cases of K2_EDGE_CASES (the training path's (1, 64, 96) and
-   (16, 64, 96), NaN, r = 0 and 16, W % 4 != 0, a
-   tiny map, unaligned views, column tiles) and at (40, 208, 400), the
-   shape of one front-end step, on random u**8 heat and on a real
-   SuperPoint heat map of the path's first step. CUDA-event medians of the
-   kernel with its input warm in L2 (``ms``) and cycling through 10
-   distinct maps, so each call reads HBM (``cold_ms``), of the plain
-   version and of the library call (max_pool2d + where), beside the bytes
-   bound.
+   (16, 64, 96), NaN, r = 0 and 16, W % 4 != 0, a tiny map, unaligned
+   views, column tiles, the 10-drone step (80, 208, 400) with NaN cells)
+   and at (40, 208, 400), the shape of one front-end step, on random u**8
+   heat and on a real SuperPoint heat map of the path's first step, and at
+   (80, 208, 400) on random u**8 heat. CUDA-event medians of the kernel
+   with its input warm in L2 (``ms``) and cycling through 10 distinct maps,
+   so each call reads HBM (``cold_ms``), of the plain version and of the
+   library call (max_pool2d + where), beside the bytes bound.
 6. K3 phase: the top-1 retrieval kernel against its plain version at
    N = D = 4096 and at N = 512, D = 4096, Q = 1 and 5, and at the edge
    shapes N = 1000, D = 130, Q = 9 and N = D = 4096, Q = 8, on a partly
@@ -200,10 +201,33 @@ non-zero without printing a result.
    32 (line art; textured with homographic-adaptation labels),
    train_descriptors at 16 (line art; textured), train_netvlad at 16
    places (its views rendered on the card). One "training" JSON line.
+13a. The 10-drone tier and the loop-dense window, after 12a, held to the
+   JAX package's CPU anchors in SOLVER_ANCHORS and DEMO_ANCHORS
+   (tools/solver_anchors.py --only d10_100 d10_1024 dense_loops_1024,
+   tools/demo_anchors.py --drones 10). (a) entry() at 10 x 100 (seed 3, 50
+   iterations: the Woodbury path at pack 1, no K1) and at 10 x 1024 (seed
+   0, 20 iterations: PCG by the "auto" rule at pack 2, K1 once an iteration
+   at each of (80, 256), (80, 128) ... (80, 4), the level shapes recorded in
+   the run). (b) The loop-dense window (5 x 1024, seed 4, loop_every=2:
+   2,555 loops, 25 iterations) on PCG at 24, 16, 12 and 8 CG sweeps (K1 at
+   the F=1024 shapes above) and on the exact path (no K1). Each solve runs
+   twice (bit-equal cost and poses) and is held to its anchor: cost within
+   1%, the anchor's iteration count, cost below the initial one, relative
+   ATE below raw VIO's (and below the reference test's 0.15 at 10 x 100);
+   its ms per LM iteration and K1's launches and kernel ms per iteration
+   are printed. (c) The 10 x 30 image demo (150 keyframes, 80 views a
+   keyframe step) through the command line's own function,
+   demo_entry.main(["image", "--drones", "10", "--frames", "30", "--out",
+   ...]), run once, held to DEMO_ANCHORS["image_d10"] at phase 9a's image
+   bars, every one of the ten drones solved, K2 launched once a keyframe
+   step (15) at (80, 208, 400), K1 and K3 never, no plain kernel version
+   run. One "tier10" JSON line.
 8. One JSON line with the solver paths' numbers, one with the kernels'
    numbers (K1's launches on the estimator path as launches_estimator, on
    the node's threaded session as launches_node; K1's, K2's and K3's on the
-   training path as launches_train), then the result line.
+   training path as launches_train and on the 10-drone demo as
+   launches_demo_d10; K1's on phase 13a's solves as launches_d10_100,
+   launches_d10_1024 and launches_dense_loops), then the result line.
 """
 from __future__ import annotations
 
@@ -218,8 +242,9 @@ import time
 import numpy as np
 
 K1_FULL_ROWS = ((40, 32, "warm"), (40, 32, "fallback"), (80, 128, "warm"),
-                (80, 128, "fallback"))
-K1_EXTRA_ROWS = ((80, 4, "fallback"), (80, 4, "nan"))
+                (80, 128, "fallback"), (80, 256, "warm"))
+K1_EXTRA_ROWS = ((80, 4, "fallback"), (80, 4, "nan"), (80, 256, "fallback"),
+                 (80, 256, "nan"))
 K1_BRANCHES = ("warm", "fallback", "nan")
 # (m, t) checked but not timed: widths other than 40 and 80 (the run-time-m
 # instantiation, ragged and empty panels) and one pair at the extremes
@@ -247,11 +272,33 @@ SOLVER_ANCHORS = dict(
     dense_100=dict(cost=177.128357),
     generic_100=dict(cost=177.128387),
     multi_100=dict(cost=177.128326),
+    # phase 13a: the 10-drone tier (seeds 3 and 0) and the loop-dense
+    # window (5 x 1024, seed 4, loop_every=2: 2,555 loops, 25 iterations);
+    # the packed PCG solves on the reference's fused-level branch, the
+    # card's (tools/solver_anchors.py::reference_fused_levels)
+    d10_100=dict(cost=747.709228515625, initial_cost=3860.382080078125,
+                 iterations=50, relative_ate=0.046610525453943986),
+    d10_1024=dict(cost=7587.98681640625, initial_cost=126922.5234375,
+                  iterations=20, relative_ate=0.045474261600993576),
+    # by linear path: PCG at cg_iters 24, 16, 12, 8 and the exact path
+    dense_loops_1024=dict(
+        pcg24=dict(cost=3425.55419921875, iterations=25,
+                   relative_ate=0.05986429677468887),
+        pcg16=dict(cost=3517.47412109375, iterations=25,
+                   relative_ate=0.06074584877153768),
+        pcg12=dict(cost=3629.955810546875, iterations=25,
+                   relative_ate=0.062484073148695994),
+        pcg8=dict(cost=4449.51806640625, iterations=25,
+                  relative_ate=0.08710246922974232),
+        exact=dict(cost=3419.97802734375, iterations=25,
+                   relative_ate=0.059811932548156664)),
 )
+K2_D10_SHAPE = (80, 208, 400)   # a keyframe step of 10 drones (phase 13a)
 # K2 edge cases, each checked bit-exact against the plain version: (shape,
 # r, kind, 16-byte aligned). NaN cells, r = 0 and 16, W % 4 != 0, a map
 # smaller than its window, views 4 bytes off 16 (4-byte loads), maps wider
-# than one column tile, run-time radii on both vector widths.
+# than one column tile, run-time radii on both vector widths, the 10-drone
+# demo's step with NaN cells.
 K2_EDGE_CASES = (
     ((1, 64, 96), 4, "random", True), ((16, 64, 96), 4, "nan", True),
     ((2, 40, 64), 4, "nan", True), ((2, 33, 65), 0, "random", True),
@@ -259,6 +306,7 @@ K2_EDGE_CASES = (
     ((40, 208, 400), 4, "random", False), ((3, 40, 64), 4, "nan", False),
     ((2, 40, 1200), 4, "random", True), ((2, 40, 64), 7, "nan", True),
     ((1, 50, 1000), 16, "random", False), ((2, 40, 1000), 16, "nan", True),
+    (K2_D10_SHAPE, 4, "nan", True),
 )
 K3_RTOL = 1e-5
 K3_SHAPES = (
@@ -738,6 +786,347 @@ DEMO_ANCHORS = {
             'relative_ate_cm': 3.4298269757080155, 'vio_relative_ate_cm':
             6.902852534460312}],
     },
+    # the image demo at 10 drones x 30 frames (tools/demo_anchors.py
+    # --drones 10)
+    "image_d10": {
+        "loop_keys": [[0, 0, 1, 0], [0, 0, 1, 200], [0, 0, 1, 1000], [0, 0, 1,
+            1200], [0, 0, 1, 2000], [0, 0, 3, 400], [0, 0, 5, 400], [0, 0, 6,
+            0], [0, 0, 6, 2000], [0, 0, 7, 2000], [0, 0, 8, 200], [0, 0, 8,
+            1200], [0, 200, 1, 0], [0, 200, 1, 800], [0, 200, 1, 1000], [0,
+            200, 1, 1800], [0, 200, 1, 2800], [0, 200, 4, 400], [0, 200, 4,
+            1600], [0, 200, 4, 2800], [0, 200, 6, 200], [0, 200, 6, 400], [0,
+            200, 6, 2400], [0, 400, 1, 400], [0, 400, 1, 600], [0, 400, 1,
+            1400], [0, 400, 1, 1600], [0, 400, 1, 2600], [0, 400, 2, 0], [0,
+            400, 2, 200], [0, 400, 2, 1600], [0, 400, 2, 2600], [0, 400, 2,
+            2800], [0, 400, 3, 200], [0, 400, 3, 2000], [0, 400, 3, 2800], [0,
+            400, 4, 0], [0, 400, 4, 1200], [0, 400, 4, 2400], [0, 400, 5, 0],
+            [0, 400, 5, 1400], [0, 400, 6, 600], [0, 400, 6, 800], [0, 400, 6,
+            2800], [0, 400, 8, 2800], [0, 400, 9, 200], [0, 400, 9, 1600], [0,
+            600, 3, 1600], [0, 600, 5, 600], [0, 600, 5, 2200], [0, 600, 5,
+            2400], [0, 600, 6, 1200], [0, 600, 9, 400], [0, 800, 1, 200], [0,
+            800, 3, 1400], [0, 800, 6, 1600], [0, 800, 6, 1800], [0, 800, 8,
+            200], [0, 1000, 0, 0], [0, 1000, 1, 0], [0, 1000, 1, 1000], [0,
+            1000, 1, 1200], [0, 1000, 1, 2000], [0, 1000, 1, 2200], [0, 1000,
+            3, 400], [0, 1000, 6, 0], [0, 1000, 6, 2000], [0, 1000, 6, 2200],
+            [0, 1000, 7, 0], [0, 1000, 7, 1000], [0, 1000, 7, 2000], [0, 1000,
+            8, 200], [0, 1000, 8, 1200], [0, 1000, 8, 2200], [0, 1200, 0,
+            200], [0, 1200, 1, 800], [0, 1200, 1, 1000], [0, 1200, 1, 1800],
+            [0, 1200, 1, 2800], [0, 1200, 2, 400], [0, 1200, 3, 200], [0,
+            1200, 3, 2000], [0, 1200, 4, 400], [0, 1200, 4, 1400], [0, 1200,
+            4, 1600], [0, 1200, 4, 2600], [0, 1200, 4, 2800], [0, 1200, 6,
+            400], [0, 1200, 6, 2400], [0, 1200, 6, 2600], [0, 1200, 7, 400],
+            [0, 1200, 7, 1400], [0, 1200, 8, 1800], [0, 1200, 8, 2800], [0,
+            1200, 9, 0], [0, 1400, 0, 400], [0, 1400, 2, 0], [0, 1400, 2,
+            1400], [0, 1400, 2, 2600], [0, 1400, 3, 0], [0, 1400, 3, 1800],
+            [0, 1400, 5, 2800], [0, 1400, 6, 800], [0, 1400, 6, 1000], [0,
+            1400, 6, 2800], [0, 1400, 9, 200], [0, 1400, 9, 600], [0, 1400, 9,
+            2000], [0, 1400, 9, 2200], [0, 1600, 0, 600], [0, 1600, 5, 600],
+            [0, 1600, 5, 800], [0, 1600, 6, 1200], [0, 1600, 6, 1400], [0,
+            1800, 0, 800], [0, 1800, 1, 200], [0, 1800, 6, 1600], [0, 1800, 6,
+            1800], [0, 1800, 8, 1200], [0, 2000, 0, 1000], [0, 2000, 1, 0],
+            [0, 2000, 1, 1000], [0, 2000, 1, 2000], [0, 2000, 6, 0], [0, 2000,
+            6, 200], [0, 2000, 6, 2000], [0, 2000, 6, 2200], [0, 2000, 7,
+            2000], [0, 2000, 8, 1200], [0, 2200, 0, 1200], [0, 2200, 2, 400],
+            [0, 2200, 3, 1200], [0, 2200, 3, 2000], [0, 2200, 4, 200], [0,
+            2200, 4, 1400], [0, 2200, 4, 1600], [0, 2200, 4, 2400], [0, 2200,
+            4, 2600], [0, 2200, 5, 0], [0, 2200, 5, 200], [0, 2200, 5, 1800],
+            [0, 2200, 6, 400], [0, 2200, 6, 600], [0, 2200, 6, 2600], [0,
+            2200, 7, 2200], [0, 2200, 8, 0], [0, 2200, 8, 2800], [0, 2200, 9,
+            0], [0, 2200, 9, 1600], [0, 2200, 9, 1800], [0, 2400, 0, 1400],
+            [0, 2400, 2, 0], [0, 2400, 2, 1400], [0, 2400, 2, 2600], [0, 2400,
+            5, 1200], [0, 2400, 5, 2400], [0, 2400, 6, 800], [0, 2400, 6,
+            1000], [0, 2400, 9, 400], [0, 2400, 9, 2200], [0, 2600, 0, 1600],
+            [0, 2600, 3, 600], [0, 2600, 3, 2400], [0, 2600, 6, 1400], [0,
+            2800, 0, 0], [0, 2800, 0, 1800], [0, 2800, 3, 1400], [0, 2800, 6,
+            1800], [0, 2800, 6, 2000], [1, 0, 3, 400], [1, 0, 4, 400], [1, 0,
+            5, 1800], [1, 0, 6, 0], [1, 0, 6, 400], [1, 0, 6, 2000], [1, 0, 6,
+            2400], [1, 0, 7, 1000], [1, 0, 7, 2000], [1, 200, 3, 400], [1,
+            200, 3, 1400], [1, 200, 5, 2200], [1, 200, 6, 0], [1, 200, 6,
+            1600], [1, 200, 6, 2000], [1, 200, 7, 1000], [1, 200, 7, 1200],
+            [1, 200, 8, 200], [1, 200, 8, 1000], [1, 200, 8, 1200], [1, 200,
+            8, 2000], [1, 400, 2, 200], [1, 400, 2, 1400], [1, 400, 2, 1600],
+            [1, 400, 2, 2800], [1, 400, 3, 1200], [1, 400, 4, 0], [1, 400, 5,
+            600], [1, 400, 6, 600], [1, 400, 6, 800], [1, 400, 6, 2600], [1,
+            400, 6, 2800], [1, 400, 7, 1200], [1, 400, 7, 2200], [1, 400, 8,
+            0], [1, 400, 8, 1000], [1, 400, 9, 0], [1, 400, 9, 200], [1, 400,
+            9, 400], [1, 400, 9, 2000], [1, 600, 2, 200], [1, 600, 2, 1600],
+            [1, 600, 2, 2800], [1, 600, 3, 200], [1, 600, 3, 1200], [1, 600,
+            3, 2000], [1, 600, 4, 0], [1, 600, 4, 200], [1, 600, 4, 1200], [1,
+            600, 4, 2400], [1, 600, 5, 0], [1, 600, 5, 200], [1, 600, 5,
+            1600], [1, 600, 5, 1800], [1, 600, 6, 400], [1, 600, 6, 600], [1,
+            600, 6, 800], [1, 600, 6, 2800], [1, 600, 7, 400], [1, 600, 7,
+            1400], [1, 600, 7, 2200], [1, 600, 8, 800], [1, 600, 8, 1800], [1,
+            600, 8, 2800], [1, 600, 9, 200], [1, 600, 9, 1600], [1, 800, 4,
+            400], [1, 800, 4, 1600], [1, 800, 4, 2800], [1, 800, 6, 400], [1,
+            800, 6, 2400], [1, 800, 7, 400], [1, 800, 7, 1400], [1, 800, 7,
+            2400], [1, 800, 8, 800], [1, 800, 8, 1800], [1, 800, 8, 2600], [1,
+            1000, 1, 0], [1, 1000, 3, 400], [1, 1000, 3, 2200], [1, 1000, 5,
+            1800], [1, 1000, 6, 0], [1, 1000, 6, 2000], [1, 1000, 6, 2400],
+            [1, 1000, 7, 1000], [1, 1000, 7, 2000], [1, 1200, 1, 200], [1,
+            1200, 3, 400], [1, 1200, 3, 1400], [1, 1200, 3, 2200], [1, 1200,
+            6, 0], [1, 1200, 6, 200], [1, 1200, 6, 1600], [1, 1200, 6, 2000],
+            [1, 1200, 6, 2200], [1, 1200, 7, 1000], [1, 1200, 7, 1200], [1,
+            1200, 7, 2000], [1, 1200, 7, 2200], [1, 1200, 8, 200], [1, 1200,
+            8, 1000], [1, 1200, 8, 1200], [1, 1200, 8, 2000], [1, 1400, 1,
+            400], [1, 1400, 2, 200], [1, 1400, 2, 1400], [1, 1400, 2, 1600],
+            [1, 1400, 2, 2800], [1, 1400, 5, 600], [1, 1400, 6, 600], [1,
+            1400, 6, 800], [1, 1400, 6, 2800], [1, 1400, 7, 200], [1, 1400, 7,
+            2200], [1, 1400, 8, 0], [1, 1400, 8, 1000], [1, 1400, 9, 200], [1,
+            1400, 9, 400], [1, 1400, 9, 2000], [1, 1600, 1, 600], [1, 1600, 2,
+            200], [1, 1600, 2, 1600], [1, 1600, 3, 200], [1, 1600, 3, 2000],
+            [1, 1600, 4, 0], [1, 1600, 4, 200], [1, 1600, 4, 1200], [1, 1600,
+            4, 2400], [1, 1600, 5, 0], [1, 1600, 5, 200], [1, 1600, 5, 1600],
+            [1, 1600, 5, 1800], [1, 1600, 6, 400], [1, 1600, 6, 600], [1,
+            1600, 6, 800], [1, 1600, 6, 2800], [1, 1600, 7, 400], [1, 1600, 7,
+            1400], [1, 1600, 7, 2200], [1, 1600, 7, 2400], [1, 1600, 8, 800],
+            [1, 1600, 8, 1800], [1, 1600, 8, 2800], [1, 1600, 9, 1600], [1,
+            1800, 1, 800], [1, 1800, 2, 400], [1, 1800, 3, 2000], [1, 1800, 4,
+            1600], [1, 1800, 4, 2800], [1, 1800, 6, 400], [1, 1800, 6, 2400],
+            [1, 1800, 6, 2600], [1, 1800, 7, 400], [1, 1800, 7, 1400], [1,
+            1800, 7, 2400], [1, 1800, 8, 800], [1, 1800, 8, 1800], [1, 1800,
+            8, 2600], [1, 1800, 9, 0], [1, 2000, 1, 0], [1, 2000, 1, 1000],
+            [1, 2000, 6, 0], [1, 2000, 6, 2000], [1, 2000, 7, 1000], [1, 2000,
+            7, 2000], [1, 2000, 7, 2800], [1, 2200, 1, 200], [1, 2200, 1,
+            1200], [1, 2200, 3, 400], [1, 2200, 3, 1400], [1, 2200, 3, 2200],
+            [1, 2200, 5, 1800], [1, 2200, 6, 0], [1, 2200, 6, 2200], [1, 2200,
+            7, 1000], [1, 2200, 7, 1200], [1, 2200, 7, 2000], [1, 2200, 7,
+            2200], [1, 2200, 8, 0], [1, 2200, 8, 200], [1, 2200, 8, 1000], [1,
+            2200, 8, 1200], [1, 2200, 8, 2000], [1, 2400, 1, 400], [1, 2400,
+            1, 1400], [1, 2400, 2, 200], [1, 2400, 2, 1400], [1, 2400, 2,
+            1600], [1, 2400, 2, 2800], [1, 2400, 5, 600], [1, 2400, 6, 600],
+            [1, 2400, 6, 800], [1, 2400, 6, 2800], [1, 2400, 7, 200], [1,
+            2400, 7, 2200], [1, 2400, 8, 0], [1, 2400, 8, 1000], [1, 2400, 8,
+            2000], [1, 2400, 9, 200], [1, 2400, 9, 400], [1, 2400, 9, 2000],
+            [1, 2600, 1, 600], [1, 2600, 1, 1600], [1, 2600, 2, 1600], [1,
+            2600, 2, 1800], [1, 2600, 3, 200], [1, 2600, 3, 1200], [1, 2600,
+            3, 2000], [1, 2600, 4, 0], [1, 2600, 4, 200], [1, 2600, 4, 1200],
+            [1, 2600, 4, 2400], [1, 2600, 5, 0], [1, 2600, 5, 200], [1, 2600,
+            5, 1600], [1, 2600, 5, 1800], [1, 2600, 6, 400], [1, 2600, 6,
+            600], [1, 2600, 6, 2800], [1, 2600, 7, 400], [1, 2600, 7, 1400],
+            [1, 2600, 7, 2400], [1, 2600, 8, 800], [1, 2600, 8, 1800], [1,
+            2600, 8, 2800], [1, 2600, 9, 1600], [1, 2800, 1, 800], [1, 2800,
+            1, 1800], [1, 2800, 2, 400], [1, 2800, 3, 2000], [1, 2800, 4,
+            400], [1, 2800, 4, 1600], [1, 2800, 4, 2600], [1, 2800, 4, 2800],
+            [1, 2800, 6, 400], [1, 2800, 6, 2400], [1, 2800, 6, 2600], [1,
+            2800, 7, 400], [1, 2800, 7, 1400], [1, 2800, 7, 2400], [1, 2800,
+            8, 800], [1, 2800, 8, 1600], [1, 2800, 8, 1800], [1, 2800, 8,
+            2800], [1, 2800, 9, 0], [2, 0, 3, 0], [2, 0, 3, 1800], [2, 0, 5,
+            1200], [2, 0, 5, 2800], [2, 0, 6, 800], [2, 0, 9, 400], [2, 0, 9,
+            600], [2, 0, 9, 2200], [2, 0, 9, 2400], [2, 200, 4, 0], [2, 200,
+            4, 200], [2, 200, 4, 1200], [2, 200, 6, 600], [2, 200, 6, 800],
+            [2, 200, 6, 2800], [2, 200, 8, 0], [2, 200, 9, 200], [2, 200, 9,
+            400], [2, 200, 9, 2000], [2, 400, 3, 200], [2, 400, 3, 1000], [2,
+            400, 3, 2000], [2, 400, 3, 2800], [2, 400, 4, 200], [2, 400, 4,
+            1400], [2, 400, 4, 2600], [2, 400, 5, 0], [2, 400, 5, 200], [2,
+            400, 5, 1600], [2, 400, 6, 600], [2, 400, 6, 2400], [2, 400, 7,
+            400], [2, 400, 8, 2800], [2, 400, 9, 0], [2, 400, 9, 1400], [2,
+            400, 9, 1800], [2, 600, 3, 200], [2, 600, 4, 200], [2, 600, 4,
+            1000], [2, 600, 4, 2200], [2, 600, 4, 2400], [2, 600, 5, 0], [2,
+            600, 5, 1600], [2, 600, 7, 400], [2, 600, 7, 1400], [2, 600, 7,
+            2400], [2, 600, 8, 800], [2, 600, 9, 1400], [2, 600, 9, 1600], [2,
+            800, 9, 1200], [2, 800, 9, 2800], [2, 1000, 5, 1200], [2, 1000, 9,
+            1000], [2, 1000, 9, 2600], [2, 1000, 9, 2800], [2, 1200, 3, 0],
+            [2, 1200, 3, 1800], [2, 1200, 5, 1200], [2, 1200, 9, 600], [2,
+            1200, 9, 800], [2, 1200, 9, 1200], [2, 1200, 9, 2400], [2, 1400,
+            2, 0], [2, 1400, 5, 1200], [2, 1400, 5, 1400], [2, 1400, 6, 1000],
+            [2, 1400, 9, 400], [2, 1400, 9, 2200], [2, 1600, 2, 200], [2,
+            1600, 3, 200], [2, 1600, 3, 2000], [2, 1600, 4, 0], [2, 1600, 4,
+            1200], [2, 1600, 4, 2400], [2, 1600, 5, 0], [2, 1600, 5, 1600],
+            [2, 1600, 6, 400], [2, 1600, 6, 800], [2, 1600, 6, 2800], [2,
+            1600, 7, 1200], [2, 1600, 7, 2200], [2, 1600, 8, 1000], [2, 1600,
+            8, 1800], [2, 1600, 8, 2800], [2, 1600, 9, 200], [2, 1600, 9,
+            1600], [2, 1600, 9, 1800], [2, 1600, 9, 2000], [2, 1800, 2, 400],
+            [2, 1800, 3, 1000], [2, 1800, 4, 800], [2, 1800, 4, 1200], [2,
+            1800, 4, 2000], [2, 1800, 4, 2400], [2, 1800, 7, 2400], [2, 1800,
+            8, 800], [2, 1800, 9, 1600], [2, 2000, 2, 600], [2, 2000, 4,
+            1000], [2, 2000, 4, 2000], [2, 2000, 4, 2200], [2, 2000, 9, 1400],
+            [2, 2200, 2, 800], [2, 2200, 9, 1000], [2, 2200, 9, 1200], [2,
+            2200, 9, 2800], [2, 2400, 2, 1000], [2, 2400, 5, 1000], [2, 2400,
+            5, 1200], [2, 2400, 9, 800], [2, 2400, 9, 1200], [2, 2400, 9,
+            2600], [2, 2600, 2, 0], [2, 2600, 2, 1200], [2, 2600, 3, 0], [2,
+            2600, 3, 1800], [2, 2600, 5, 1200], [2, 2600, 5, 2800], [2, 2600,
+            9, 600], [2, 2600, 9, 2200], [2, 2600, 9, 2400], [2, 2800, 2,
+            200], [2, 2800, 2, 1400], [2, 2800, 4, 0], [2, 2800, 4, 1200], [2,
+            2800, 6, 600], [2, 2800, 6, 2800], [2, 2800, 9, 200], [2, 2800, 9,
+            400], [2, 2800, 9, 2000], [2, 2800, 9, 2200], [3, 0, 5, 1200], [3,
+            0, 5, 1600], [3, 0, 5, 2800], [3, 0, 9, 600], [3, 0, 9, 2400], [3,
+            200, 4, 0], [3, 200, 4, 1200], [3, 200, 4, 2600], [3, 200, 5, 0],
+            [3, 200, 5, 1600], [3, 200, 6, 400], [3, 200, 6, 2800], [3, 200,
+            7, 400], [3, 200, 7, 1400], [3, 200, 7, 2400], [3, 200, 8, 800],
+            [3, 200, 8, 1000], [3, 200, 8, 1800], [3, 200, 8, 2800], [3, 200,
+            9, 0], [3, 200, 9, 1800], [3, 400, 5, 400], [3, 400, 5, 2000], [3,
+            400, 6, 0], [3, 400, 6, 2000], [3, 400, 8, 200], [3, 400, 8,
+            1200], [3, 600, 5, 600], [3, 600, 5, 800], [3, 600, 5, 2200], [3,
+            600, 5, 2400], [3, 600, 6, 1400], [3, 800, 5, 1000], [3, 800, 5,
+            2600], [3, 800, 9, 400], [3, 800, 9, 2200], [3, 1000, 4, 1200],
+            [3, 1000, 4, 2400], [3, 1000, 4, 2600], [3, 1000, 5, 1400], [3,
+            1000, 9, 0], [3, 1000, 9, 1600], [3, 1000, 9, 1800], [3, 1200, 4,
+            200], [3, 1200, 4, 1400], [3, 1200, 4, 2600], [3, 1200, 5, 200],
+            [3, 1200, 5, 1800], [3, 1200, 6, 600], [3, 1200, 6, 2600], [3,
+            1200, 7, 200], [3, 1200, 7, 1200], [3, 1200, 7, 1400], [3, 1200,
+            7, 2200], [3, 1200, 8, 0], [3, 1200, 8, 1000], [3, 1200, 8, 1800],
+            [3, 1200, 9, 0], [3, 1400, 5, 600], [3, 1400, 5, 2200], [3, 1400,
+            8, 1000], [3, 1400, 8, 2000], [3, 1600, 5, 800], [3, 1800, 3, 0],
+            [3, 1800, 5, 1200], [3, 1800, 5, 2800], [3, 1800, 9, 600], [3,
+            2000, 3, 200], [3, 2000, 4, 0], [3, 2000, 4, 1200], [3, 2000, 4,
+            2600], [3, 2000, 5, 0], [3, 2000, 5, 1600], [3, 2000, 6, 400], [3,
+            2000, 6, 2600], [3, 2000, 6, 2800], [3, 2000, 7, 400], [3, 2000,
+            7, 1400], [3, 2000, 7, 2400], [3, 2000, 8, 800], [3, 2000, 8,
+            1800], [3, 2000, 8, 2800], [3, 2000, 9, 0], [3, 2000, 9, 1800],
+            [3, 2200, 3, 400], [3, 2200, 4, 1400], [3, 2200, 5, 400], [3,
+            2200, 5, 2000], [3, 2200, 6, 0], [3, 2200, 6, 2000], [3, 2200, 8,
+            0], [3, 2400, 3, 600], [3, 2400, 5, 600], [3, 2400, 5, 800], [3,
+            2400, 5, 2200], [3, 2400, 6, 1400], [3, 2600, 3, 800], [3, 2600,
+            5, 1000], [3, 2600, 5, 2600], [3, 2600, 9, 2200], [3, 2800, 3,
+            1000], [3, 2800, 4, 1200], [3, 2800, 4, 2400], [3, 2800, 5, 1400],
+            [3, 2800, 9, 1600], [4, 0, 5, 0], [4, 0, 5, 200], [4, 0, 5, 1600],
+            [4, 0, 6, 400], [4, 0, 6, 800], [4, 0, 6, 2800], [4, 0, 7, 400],
+            [4, 0, 7, 1400], [4, 0, 7, 2400], [4, 0, 8, 800], [4, 0, 8, 1800],
+            [4, 0, 9, 200], [4, 0, 9, 1600], [4, 0, 9, 1800], [4, 200, 5,
+            200], [4, 200, 6, 600], [4, 200, 6, 2600], [4, 200, 7, 2400], [4,
+            200, 8, 800], [4, 200, 9, 0], [4, 200, 9, 1600], [4, 400, 6,
+            2400], [4, 400, 7, 600], [4, 400, 7, 1600], [4, 400, 8, 600], [4,
+            400, 8, 1600], [4, 400, 8, 2600], [4, 600, 7, 2600], [4, 1000, 5,
+            1600], [4, 1000, 9, 1400], [4, 1200, 4, 0], [4, 1200, 5, 0], [4,
+            1200, 5, 1400], [4, 1200, 5, 1600], [4, 1200, 6, 600], [4, 1200,
+            6, 2800], [4, 1200, 7, 1400], [4, 1200, 8, 1800], [4, 1200, 9,
+            1400], [4, 1200, 9, 1600], [4, 1400, 4, 200], [4, 1400, 4, 400],
+            [4, 1400, 5, 0], [4, 1400, 5, 200], [4, 1400, 5, 1800], [4, 1400,
+            6, 600], [4, 1400, 6, 2600], [4, 1400, 7, 1200], [4, 1400, 7,
+            2200], [4, 1400, 8, 0], [4, 1400, 9, 0], [4, 1400, 9, 1800], [4,
+            1600, 4, 400], [4, 1600, 7, 400], [4, 1600, 7, 600], [4, 1600, 7,
+            1400], [4, 1600, 7, 2400], [4, 1600, 8, 800], [4, 1600, 8, 1600],
+            [4, 1600, 8, 1800], [4, 1600, 8, 2600], [4, 1800, 4, 600], [4,
+            2000, 4, 800], [4, 2000, 4, 1000], [4, 2000, 7, 600], [4, 2200, 4,
+            1000], [4, 2200, 7, 400], [4, 2200, 9, 1400], [4, 2400, 4, 0], [4,
+            2400, 4, 1200], [4, 2400, 5, 1400], [4, 2400, 6, 600], [4, 2400,
+            7, 1400], [4, 2400, 7, 2400], [4, 2400, 8, 800], [4, 2400, 8,
+            1800], [4, 2400, 9, 0], [4, 2400, 9, 1600], [4, 2600, 4, 200], [4,
+            2600, 4, 1400], [4, 2600, 5, 0], [4, 2600, 5, 200], [4, 2600, 5,
+            1600], [4, 2600, 5, 1800], [4, 2600, 6, 400], [4, 2600, 6, 600],
+            [4, 2600, 6, 2400], [4, 2600, 6, 2600], [4, 2600, 7, 400], [4,
+            2600, 8, 0], [4, 2600, 9, 0], [4, 2600, 9, 1800], [4, 2800, 4,
+            400], [4, 2800, 4, 1600], [4, 2800, 6, 2400], [4, 2800, 7, 600],
+            [4, 2800, 7, 1400], [4, 2800, 7, 2400], [4, 2800, 8, 800], [4,
+            2800, 8, 1600], [4, 2800, 8, 2600], [5, 0, 6, 2600], [5, 0, 7,
+            400], [5, 0, 7, 1400], [5, 0, 7, 2400], [5, 0, 8, 800], [5, 0, 8,
+            1800], [5, 0, 8, 2800], [5, 0, 9, 0], [5, 0, 9, 1800], [5, 200, 6,
+            600], [5, 200, 6, 2600], [5, 200, 7, 1200], [5, 200, 7, 1400], [5,
+            200, 7, 2200], [5, 200, 7, 2400], [5, 200, 8, 0], [5, 200, 8,
+            800], [5, 200, 9, 0], [5, 400, 6, 2000], [5, 400, 7, 200], [5,
+            400, 8, 2000], [5, 600, 6, 1200], [5, 600, 8, 2000], [5, 600, 9,
+            2000], [5, 800, 6, 1000], [5, 1000, 9, 400], [5, 1000, 9, 800],
+            [5, 1000, 9, 2200], [5, 1000, 9, 2400], [5, 1200, 9, 600], [5,
+            1200, 9, 1000], [5, 1200, 9, 2200], [5, 1200, 9, 2400], [5, 1200,
+            9, 2600], [5, 1200, 9, 2800], [5, 1400, 9, 1600], [5, 1600, 5, 0],
+            [5, 1600, 7, 400], [5, 1600, 7, 1400], [5, 1600, 7, 2400], [5,
+            1600, 8, 800], [5, 1600, 8, 1800], [5, 1600, 8, 2800], [5, 1600,
+            9, 0], [5, 1600, 9, 1400], [5, 1800, 5, 200], [5, 1800, 6, 200],
+            [5, 1800, 6, 600], [5, 1800, 6, 2600], [5, 1800, 7, 200], [5,
+            1800, 7, 1200], [5, 1800, 7, 2200], [5, 1800, 8, 0], [5, 1800, 8,
+            1000], [5, 1800, 9, 0], [5, 1800, 9, 1800], [5, 2000, 5, 400], [5,
+            2000, 8, 2000], [5, 2000, 9, 2000], [5, 2200, 5, 600], [5, 2200,
+            6, 1200], [5, 2400, 5, 800], [5, 2400, 6, 1000], [5, 2400, 9,
+            600], [5, 2400, 9, 2200], [5, 2600, 5, 1000], [5, 2600, 9, 400],
+            [5, 2600, 9, 2200], [5, 2600, 9, 2400], [5, 2600, 9, 2600], [5,
+            2800, 5, 1200], [5, 2800, 9, 600], [5, 2800, 9, 2200], [5, 2800,
+            9, 2400], [6, 0, 7, 0], [6, 0, 7, 1000], [6, 0, 7, 2000], [6, 0,
+            8, 200], [6, 0, 8, 1200], [6, 0, 8, 2200], [6, 200, 7, 0], [6,
+            200, 7, 200], [6, 200, 7, 1000], [6, 200, 7, 1200], [6, 200, 7,
+            2000], [6, 200, 7, 2200], [6, 400, 8, 1800], [6, 400, 8, 2800],
+            [6, 400, 9, 0], [6, 400, 9, 1800], [6, 600, 7, 1200], [6, 600, 7,
+            2200], [6, 600, 8, 0], [6, 600, 9, 0], [6, 600, 9, 1600], [6, 600,
+            9, 1800], [6, 800, 8, 1000], [6, 800, 8, 2800], [6, 800, 9, 200],
+            [6, 800, 9, 1800], [6, 1000, 9, 400], [6, 1000, 9, 2200], [6,
+            1200, 8, 2000], [6, 1600, 8, 200], [6, 2000, 6, 0], [6, 2000, 7,
+            1000], [6, 2000, 7, 2000], [6, 2000, 8, 200], [6, 2000, 8, 1200],
+            [6, 2200, 6, 0], [6, 2200, 6, 200], [6, 2200, 7, 0], [6, 2200, 7,
+            1000], [6, 2200, 7, 1200], [6, 2200, 7, 2000], [6, 2200, 8, 200],
+            [6, 2200, 8, 1200], [6, 2200, 8, 2200], [6, 2400, 6, 200], [6,
+            2400, 6, 400], [6, 2400, 7, 1200], [6, 2400, 7, 2200], [6, 2400,
+            8, 1800], [6, 2400, 8, 2800], [6, 2600, 6, 400], [6, 2600, 6,
+            600], [6, 2600, 7, 2200], [6, 2600, 8, 0], [6, 2600, 8, 1000], [6,
+            2600, 8, 2800], [6, 2600, 9, 0], [6, 2600, 9, 1600], [6, 2600, 9,
+            1800], [6, 2800, 6, 600], [6, 2800, 6, 800], [6, 2800, 7, 2200],
+            [6, 2800, 8, 0], [6, 2800, 8, 2800], [6, 2800, 9, 200], [6, 2800,
+            9, 1600], [6, 2800, 9, 2000], [7, 0, 8, 200], [7, 0, 8, 1200], [7,
+            0, 8, 2200], [7, 0, 8, 2400], [7, 200, 8, 0], [7, 200, 8, 1000],
+            [7, 200, 8, 2000], [7, 400, 8, 800], [7, 400, 8, 1800], [7, 400,
+            8, 2800], [7, 400, 9, 0], [7, 400, 9, 1800], [7, 600, 8, 600], [7,
+            600, 8, 1600], [7, 600, 8, 2600], [7, 800, 8, 400], [7, 800, 8,
+            1400], [7, 800, 8, 2400], [7, 1000, 7, 0], [7, 1000, 8, 200], [7,
+            1000, 8, 1200], [7, 1000, 8, 1400], [7, 1000, 8, 2200], [7, 1200,
+            7, 200], [7, 1200, 8, 0], [7, 1200, 8, 1000], [7, 1200, 8, 2000],
+            [7, 1200, 8, 2800], [7, 1400, 7, 400], [7, 1400, 8, 800], [7,
+            1400, 8, 1800], [7, 1400, 8, 2800], [7, 1400, 9, 1600], [7, 1400,
+            9, 1800], [7, 1600, 7, 600], [7, 1600, 8, 600], [7, 1600, 8,
+            1600], [7, 1600, 8, 2600], [7, 1800, 7, 800], [7, 1800, 8, 400],
+            [7, 1800, 8, 600], [7, 1800, 8, 1400], [7, 1800, 8, 2400], [7,
+            2000, 7, 0], [7, 2000, 7, 1000], [7, 2000, 8, 200], [7, 2000, 8,
+            1200], [7, 2000, 8, 2200], [7, 2200, 7, 200], [7, 2200, 7, 1200],
+            [7, 2200, 8, 0], [7, 2200, 8, 1000], [7, 2200, 8, 2000], [7, 2200,
+            9, 200], [7, 2200, 9, 2000], [7, 2400, 7, 400], [7, 2400, 7,
+            1400], [7, 2400, 8, 800], [7, 2400, 8, 1800], [7, 2400, 8, 2800],
+            [7, 2400, 9, 1600], [7, 2600, 7, 600], [7, 2600, 7, 1600], [7,
+            2600, 8, 600], [7, 2600, 8, 1600], [7, 2600, 8, 2600], [7, 2800,
+            7, 800], [7, 2800, 7, 1800], [7, 2800, 8, 400], [7, 2800, 8,
+            1400], [7, 2800, 8, 2400], [8, 0, 9, 0], [8, 0, 9, 1800], [8, 0,
+            9, 2000], [8, 800, 9, 1600], [8, 1000, 8, 0], [8, 1000, 9, 200],
+            [8, 1000, 9, 2000], [8, 1200, 8, 200], [8, 1400, 8, 400], [8,
+            1600, 8, 600], [8, 1800, 8, 800], [8, 1800, 9, 1800], [8, 2000, 8,
+            0], [8, 2000, 8, 1000], [8, 2000, 9, 2000], [8, 2200, 8, 200], [8,
+            2200, 8, 1200], [8, 2400, 8, 400], [8, 2400, 8, 1400], [8, 2600,
+            8, 600], [8, 2600, 8, 1600], [8, 2800, 9, 0], [8, 2800, 9, 200],
+            [8, 2800, 9, 1800], [9, 1600, 9, 0], [9, 1800, 9, 0], [9, 1800, 9,
+            200], [9, 2000, 9, 200], [9, 2000, 9, 400], [9, 2200, 9, 400], [9,
+            2200, 9, 600], [9, 2400, 9, 600], [9, 2600, 9, 800], [9, 2600, 9,
+            1000], [9, 2800, 9, 1000]],
+        "false_keys": [[0, 0, 1, 0], [0, 0, 5, 400], [0, 600, 5, 2200], [0,
+            1200, 1, 1000], [0, 1800, 8, 1200], [0, 2000, 8, 1200], [0, 2800,
+            3, 1400], [1, 0, 3, 400], [1, 0, 4, 400], [1, 200, 5, 2200], [1,
+            1200, 6, 1600], [1, 1800, 2, 400], [1, 2000, 7, 2800], [1, 2800,
+            8, 1600], [2, 200, 4, 200], [2, 400, 3, 2800], [2, 400, 6, 2400],
+            [2, 400, 9, 1400], [2, 600, 3, 200], [2, 600, 4, 200], [2, 600, 8,
+            800], [2, 800, 9, 2800], [2, 1000, 5, 1200], [2, 1000, 9, 2600],
+            [2, 1200, 9, 1200], [2, 1400, 5, 1200], [2, 1800, 4, 2000], [2,
+            2000, 4, 2000], [2, 2200, 9, 1000], [2, 2400, 5, 1000], [2, 2400,
+            9, 1200], [3, 0, 5, 1600], [3, 200, 8, 1000], [3, 600, 5, 2400],
+            [3, 800, 9, 400], [3, 1200, 7, 1400], [3, 2200, 4, 1400], [4, 400,
+            6, 2400], [4, 600, 7, 2600], [4, 2000, 7, 600], [4, 2200, 7, 400],
+            [4, 2800, 7, 1400], [5, 1000, 9, 800], [5, 1200, 9, 2800], [5,
+            2400, 9, 600], [5, 2600, 9, 400], [5, 2600, 9, 2600], [5, 2800, 9,
+            2200], [6, 1200, 8, 2000], [6, 1600, 8, 200], [7, 800, 8, 400],
+            [7, 1000, 8, 1400]],
+        "loop_recall": 0.7093596059113301,
+        "loop_precision": 0.9478957915831663,
+        "loop_precision_post_pcm": 0.9731934731934732,
+        "loops_unique": 998,
+        "loops_found": 2272,
+        "loops_received": 17626,
+        "revisit_opportunities": 812,
+        "all_solved": True,
+        "per_drone": [{'drone': 0, 'cost': 479.31512451171875,
+            'relative_ate_cm': 3.2076921131364995, 'vio_relative_ate_cm':
+            10.348307875745217}, {'drone': 1, 'cost': 496.441650390625,
+            'relative_ate_cm': 3.2123100467906514, 'vio_relative_ate_cm':
+            10.348307875745217}, {'drone': 2, 'cost': 446.6573486328125,
+            'relative_ate_cm': 3.1653420952733478, 'vio_relative_ate_cm':
+            10.348307875745217}, {'drone': 3, 'cost': 472.6708068847656,
+            'relative_ate_cm': 3.2652052171611845, 'vio_relative_ate_cm':
+            10.348307875745217}, {'drone': 4, 'cost': 423.3739013671875,
+            'relative_ate_cm': 3.1794770837973356, 'vio_relative_ate_cm':
+            10.348307875745217}, {'drone': 5, 'cost': 455.67510986328125,
+            'relative_ate_cm': 3.283242696917859, 'vio_relative_ate_cm':
+            10.348307875745217}, {'drone': 6, 'cost': 393.87408447265625,
+            'relative_ate_cm': 3.4309503834046366, 'vio_relative_ate_cm':
+            10.317075151792594}, {'drone': 7, 'cost': 444.5181579589844,
+            'relative_ate_cm': 3.3047239167234856, 'vio_relative_ate_cm':
+            10.348307875745217}, {'drone': 8, 'cost': 472.5784912109375,
+            'relative_ate_cm': 3.249397382914522, 'vio_relative_ate_cm':
+            10.348307875745217}, {'drone': 9, 'cost': 395.95391845703125,
+            'relative_ate_cm': 3.229877092064849, 'vio_relative_ate_cm':
+            10.401018167455769}],
+    },
 }
 DEMO_KEY_SHARE = 0.02       # feature demo: symmetric key difference / count
 DEMO_COST_RTOL = 0.01       # feature demo: per-drone final cost
@@ -943,6 +1332,11 @@ TRAIN_RESOLUTION = {"final_loss": 0.0, "easy_recall": 1 / 64}
 TRAIN_RELOAD_ATOL = 1e-5    # (e) against the f16-rounded weights' forward
 TRAIN_TIMED_STEPS = 10      # (f) steps timed per row, after 2 warm-up steps
 K2_TRAIN_SHAPES = ((1, 64, 96), (16, 64, 96))
+# Phase 13a: the 10-drone tier and the loop-dense window
+D10_ATE_BAR = 0.15          # tests/test_scale10.py:25, held at 10 x 100
+DENSE_CG_ITERS = (24, 16, 12, 8)
+DENSE_ITERS = 25            # bench.py:322
+D10_DEMO_STEPS = 15         # keyframe steps of the 10 x 30 image demo
 
 
 def check(cond: bool, msg: str) -> None:
@@ -962,7 +1356,8 @@ def kernel_phase():
         fused_reduction_level, fused_reduction_level_ref)
 
     rng = np.random.default_rng(0)
-    shapes = [(m, t) for _, m, ts in SOLVE_LEVELS for t in ts]
+    shapes = list(dict.fromkeys((m, t) for _, _, m, ts in SOLVE_LEVELS
+                                for t in ts))
     timed = [(m, t, "warm") for m, t in shapes] + [
         r for r in K1_FULL_ROWS + K1_EXTRA_ROWS if r[2] != "warm"]
     rows, odd = [], []
@@ -1061,17 +1456,17 @@ def k2_recording():
         kernels.grid_nms = launch
 
 
-def check_k1_levels(F: int, levels, iters: int) -> int:
+def check_k1_levels(F: int, levels, iters: int, D: int = 5) -> int:
     """K1's launches of a path just run: every launch a kernel launch, at the
-    level shapes of SOLVE_LEVELS for F, each once per iteration."""
+    level shapes of SOLVE_LEVELS for F and D, each once per iteration."""
     from omniswarm_torch.benchutil import SOLVE_LEVELS
     from omniswarm_torch.solver.fused_level import (
         fused_reduction_level, fused_reduction_level_ref)
 
     check(fused_reduction_level_ref.calls == 0,
           "the plain level ran on the card path")
-    want = {(m, t): iters for F_, m, ts in SOLVE_LEVELS if F_ == F
-            for t in ts}
+    want = {(m, t): iters for F_, D_, m, ts in SOLVE_LEVELS
+            if (F_, D_) == (F, D) for t in ts}
     check(dict(levels) == want, f"K1 level shapes {dict(levels)}, "
           f"expected {want}")
     return fused_reduction_level.launches
@@ -1434,7 +1829,7 @@ def k2_phase():
 
     r = 4
     rng = np.random.default_rng(1)
-    shape = (40, 208, 400)
+    step = (40, 208, 400)
     checked = []
     for eshape, er, kind, aligned in K2_EDGE_CASES:
         heat = k2_heat(rng, eshape, kind, aligned)
@@ -1448,10 +1843,15 @@ def k2_phase():
                                 kernels.grid_nms_vector_width(heat, got)),
                             kept=int((got > 0).sum())))
     print("K2 checked only", json.dumps(checked), flush=True)
-    inputs = {"random_u8": k2_heat(rng, shape, "random"),
-              "superpoint_heat": first_step_heat()}
+    # the D=5 step's 40 views, and the 10-drone demo's 80 (phase 13a)
+    inputs = {"random_u8": k2_heat(rng, step, "random"),
+              "superpoint_heat": first_step_heat(),
+              "random_u8_d10": k2_heat(rng, K2_D10_SHAPE, "random")}
+    want = dict(random_u8=step, superpoint_heat=step,
+                random_u8_d10=K2_D10_SHAPE)
     rows = []
     for name, heat in inputs.items():
+        shape = want[name]
         check(tuple(heat.shape) == shape, f"K2 input {name} {heat.shape}")
         got = kernels.grid_nms(heat, r)
         ref = grid_nms_ref(heat, r)
@@ -1460,7 +1860,8 @@ def k2_phase():
               f"K2 disagrees on {name}: {int((got != ref).sum())} cells")
         kept = int((got > 0).sum())
         b_ms, by = bound(2 * heat.numel() * 4, heat.numel() * (4 * r + 1))
-        # 10 distinct maps (133 MB, > the 50 MB L2): each call reads HBM
+        # 10 distinct maps (133 MB at B=40, > the 50 MB L2): each call
+        # reads HBM
         cold = [torch.roll(heat, k, 0) for k in range(10)]
         row = dict(
             input=name, shape=list(shape), kept=kept, max_abs_err=float(
@@ -1602,7 +2003,7 @@ def estimator_checks_k1(levels) -> list:
                                            random_level)
     from omniswarm_torch.core.precision import highp
 
-    seen = {(m, t) for _, m, ts in SOLVE_LEVELS for t in ts}
+    seen = {(m, t) for _, _, m, ts in SOLVE_LEVELS for t in ts}
     seen |= set(K1_ODD_SHAPES)
     rng = np.random.default_rng(1)
     rows = []
@@ -1919,6 +2320,32 @@ def detector_parity(prep, card: str = "cuda") -> dict:
     return out
 
 
+def image_demo_bars(name: str, res: dict, want: dict, flips: list) -> None:
+    """An image demo run held to its anchors: every drone solved, the loop
+    keys' flips, recall, precision before and after PCM, each drone's
+    relative ATE against its anchor's and below raw VIO's."""
+    check(res["all_solved"] and len(res["per_drone"]) == len(
+        want["per_drone"]), f"{name}: a drone did not solve")
+    check(len(flips) <= IMG_KEY_SHARE * len(want["loop_keys"]),
+          f"{name}: {len(flips)} loop keys differ from the anchors")
+    check(abs(res["loop_recall"] - want["loop_recall"]) <= IMG_RECALL_ATOL,
+          f"{name} recall {res['loop_recall']} vs {want['loop_recall']}")
+    check(res["loop_precision"] >= want["loop_precision"]
+          - IMG_PRECISION_DROP, f"{name} precision "
+          f"{res['loop_precision']} vs {want['loop_precision']}")
+    check(res["loop_precision_post_pcm"] >= want["loop_precision_post_pcm"]
+          - IMG_PCM_PRECISION_DROP, f"{name} post-PCM precision "
+          f"{res['loop_precision_post_pcm']} vs "
+          f"{want['loop_precision_post_pcm']}")
+    for got, ref in zip(res["per_drone"], want["per_drone"]):
+        check(got["relative_ate_cm"] <= ref["relative_ate_cm"]
+              + IMG_ATE_SLACK_CM
+              and got["relative_ate_cm"] < got["vio_relative_ate_cm"],
+              f"{name} drone {got['drone']}: relative ATE "
+              f"{got['relative_ate_cm']} cm (anchor {ref['relative_ate_cm']}"
+              f", raw VIO {got['vio_relative_ate_cm']})")
+
+
 def demo_numbers(res: dict, seconds: float, want: dict) -> dict:
     """A demo run's numbers for the "demo" line, each drone's cost and
     relative ATE beside its anchor's."""
@@ -2011,25 +2438,7 @@ def demos_phase() -> dict:
           f"({len(want['loop_keys'])} in the anchors), flips {flips}, "
           f"bit-equal second run {same_demo_run(res, runs[1])}", flush=True)
     check(same_demo_run(res, runs[1]), "two image demo runs differ")
-    check(res["all_solved"], "image demo: a drone did not solve")
-    check(len(flips) <= IMG_KEY_SHARE * len(want["loop_keys"]),
-          f"image demo: {len(flips)} loop keys differ from the anchors")
-    check(abs(res["loop_recall"] - want["loop_recall"]) <= IMG_RECALL_ATOL,
-          f"image demo recall {res['loop_recall']} vs {want['loop_recall']}")
-    check(res["loop_precision"] >= want["loop_precision"]
-          - IMG_PRECISION_DROP, f"image demo precision "
-          f"{res['loop_precision']} vs {want['loop_precision']}")
-    check(res["loop_precision_post_pcm"] >= want["loop_precision_post_pcm"]
-          - IMG_PCM_PRECISION_DROP, f"image demo post-PCM precision "
-          f"{res['loop_precision_post_pcm']} vs "
-          f"{want['loop_precision_post_pcm']}")
-    for got, ref in zip(res["per_drone"], want["per_drone"]):
-        check(got["relative_ate_cm"] <= ref["relative_ate_cm"]
-              + IMG_ATE_SLACK_CM
-              and got["relative_ate_cm"] < got["vio_relative_ate_cm"],
-              f"image demo drone {got['drone']}: relative ATE "
-              f"{got['relative_ate_cm']} cm (anchor {ref['relative_ate_cm']}"
-              f", raw VIO {got['vio_relative_ate_cm']})")
+    image_demo_bars("image demo", res, want, flips)
     out["image"] = dict(demo_numbers(res, res["seconds"], want),
                         flips=flips, k1_launches=res["k1_launches"],
                         k3_launches=res["k3_launches"],
@@ -2749,6 +3158,135 @@ def training_phase(card: str) -> dict:
     return out
 
 
+def tier10_solve(name: str, anchor: dict, D: int, F: int, seed: int,
+                 iters: int, k1: bool, **kw) -> dict:
+    """One solve of phase 13a through entry(), twice (bit-equal), held to
+    its JAX-CPU anchor: cost within 1%, the anchor's iteration count, cost
+    below the initial one, relative ATE below raw VIO's; K1's launches at
+    SOLVE_LEVELS's shapes for (F, D) once an iteration if ``k1``, else
+    none. Host seconds: the synchronised solve, and the rest of entry()
+    (simulation, graph build, scoring) as ``setup_s``."""
+    from omniswarm_torch.entry import entry
+    from omniswarm_torch.solver.fused_level import (
+        fused_reduction_level, fused_reduction_level_ref)
+
+    def run():
+        return entry(device="cuda", num_frames=F, num_drones=D, seed=seed,
+                     max_iterations=iters, **kw)
+
+    t0 = time.perf_counter()
+    with k1_recording() as levels:
+        res = run()
+    wall = time.perf_counter() - t0
+    if k1:
+        launches = check_k1_levels(F, levels, res.iterations, D)
+    else:
+        launches = fused_reduction_level.launches
+        check(launches == 0 and not levels
+              and fused_reduction_level_ref.calls == 0,
+              f"{name}: K1 ran ({launches} launches) on a path without it")
+    again = run()
+    check_repeat(name, res.cost, again.cost, res.poses, again.poses)
+    out = dict(path=name, D=D, F=F, seed=seed, loops=res.num_loops,
+               cost=res.cost, anchor_cost=anchor["cost"],
+               initial_cost=res.initial_cost, iterations=res.iterations,
+               relative_ate=res.relative_ate,
+               anchor_relative_ate=anchor["relative_ate"],
+               vio_relative_ate=res.vio_relative_ate, launches=launches,
+               levels=[[m, t, n] for (m, t), n in sorted(levels.items())],
+               ms_per_iteration=res.solve_s * 1e3 / res.iterations,
+               repeat_ms_per_iteration=again.solve_s * 1e3
+               / again.iterations,
+               solve_s=res.solve_s, setup_s=wall - res.solve_s)
+    print("tier-10 solve", json.dumps(out), flush=True)
+    held(f"{name} cost", res.cost, anchor["cost"])
+    check(res.iterations == anchor["iterations"],
+          f"{name}: {res.iterations} iterations, the anchor "
+          f"{anchor['iterations']}")
+    check(math.isfinite(res.cost) and res.cost < res.initial_cost,
+          f"{name}: cost {res.cost} not below {res.initial_cost}")
+    check(res.relative_ate < res.vio_relative_ate,
+          f"{name}: relative ATE {res.relative_ate} not below raw VIO's "
+          f"{res.vio_relative_ate}")
+    return out
+
+
+def tier10_demo() -> dict:
+    """Phase 13a (c): the 10 x 30 image demo through the command line's
+    own function, held to DEMO_ANCHORS["image_d10"] at phase 9a's bars."""
+    from omniswarm_torch import demo_entry
+    from omniswarm_torch.ops.frontend_kernels import (
+        grid_nms, grid_nms_ref, retrieval_top1, retrieval_top1_ref)
+    from omniswarm_torch.solver.fused_level import (
+        fused_reduction_level, fused_reduction_level_ref)
+
+    want = DEMO_ANCHORS["image_d10"]
+    path = f"{WORK_DIR}/image_demo_d10.json"
+    t0 = time.perf_counter()
+    with k1_recording() as levels, k2_recording() as shapes:
+        res = demo_entry.main(["image", "--drones", "10", "--frames", "30",
+                               "--out", path])
+    seconds = time.perf_counter() - t0
+    launches = dict(k1=fused_reduction_level.launches, k2=grid_nms.launches,
+                    k3=retrieval_top1.launches)
+    flips = demo_flips(res, want)
+    print(f"image demo D=10: {res['loops_unique']} unique loops "
+          f"({len(want['loop_keys'])} in the anchors), flips {flips}, K2 at "
+          f"{dict(shapes)}", flush=True)
+    check(grid_nms_ref.calls == 0 and retrieval_top1_ref.calls == 0
+          and fused_reduction_level_ref.calls == 0,
+          "a plain kernel version ran on the 10-drone demo's path")
+    check(dict(shapes) == {K2_D10_SHAPE: D10_DEMO_STEPS}
+          and launches["k2"] == res["k2_launches"] == res["keyframe_steps"]
+          == D10_DEMO_STEPS, f"image demo D=10: K2 at {dict(shapes)}, "
+          f"{launches['k2']} launches in {res['keyframe_steps']} steps")
+    check(launches["k1"] == 0 and not levels and launches["k3"] == 0,
+          f"image demo D=10 launches {launches}")
+    with open(path) as f:
+        check(json.load(f)["drones"] == 10, f"{path} is not the run's")
+    image_demo_bars("image demo D=10", res, want, flips)
+    print(f"image demo D=10 host seconds: render {res['render_s']:.1f}, "
+          f"frame loop {res['session_s']:.1f} (detector ticks "
+          f"{res['detector_ticks']} x median "
+          f"{res['detector_tick_ms_median']:.2f} ms), final solves "
+          f"{res['solve_s']:.1f}, of {seconds:.1f}", flush=True)
+    return dict(demo_numbers(res, seconds, want), flips=flips,
+                launches=launches, render_s=res["render_s"],
+                session_s=res["session_s"], solve_s=res["solve_s"])
+
+
+def tier10_phase(rows) -> dict:
+    """Phase 13a: the 10-drone tier and the loop-dense window (see the
+    docstring)."""
+    t0 = time.perf_counter()
+    out, per_iteration = {}, {}
+    out["d10_100"] = tier10_solve("d10_100", SOLVER_ANCHORS["d10_100"], 10,
+                                  100, 3, 50, k1=False)
+    check(out["d10_100"]["relative_ate"] < D10_ATE_BAR,
+          f"d10_100 relative ATE {out['d10_100']['relative_ate']} >= "
+          f"{D10_ATE_BAR}")
+    out["d10_1024"] = tier10_solve("d10_1024", SOLVER_ANCHORS["d10_1024"],
+                                   10, 1024, 0, 20, k1=True)
+    per_iteration["d10_1024"] = k1_per_iteration_of(rows, out["d10_1024"])
+    dense = SOLVER_ANCHORS["dense_loops_1024"]
+    out["dense"] = {}
+    for n in DENSE_CG_ITERS:
+        out["dense"][f"pcg{n}"] = tier10_solve(
+            f"dense pcg{n}", dense[f"pcg{n}"], 5, 1024, 4, DENSE_ITERS,
+            k1=True, loop_every=2, cg_iters=n)
+        per_iteration[f"dense_pcg{n}"] = k1_per_iteration_of(
+            rows, out["dense"][f"pcg{n}"])
+    out["dense"]["exact"] = tier10_solve(
+        "dense exact", dense["exact"], 5, 1024, 4, DENSE_ITERS, k1=False,
+        loop_every=2, exact_linear=True)
+    out["solve_seconds"] = time.perf_counter() - t0
+    out["demo"] = tier10_demo()
+    out["k1_per_iteration"] = per_iteration
+    out["seconds"] = time.perf_counter() - t0
+    print("tier10", json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
     try:
@@ -2829,6 +3367,12 @@ def main() -> int:
           f"{train['launches']['k1']}/{train['launches']['k2']}/"
           f"{train['launches']['k3']} on the training path", flush=True)
 
+    t0 = time.perf_counter()
+    tier10 = tier10_phase(rows)
+    k1_per_iteration.update(tier10["k1_per_iteration"])
+    print(f"tier-10 phase {time.perf_counter() - t0:.1f} s (solves "
+          f"{tier10['solve_seconds']:.1f} s)", flush=True)
+
     main = next(r for r in rows
                 if (r["m"], r["t"], r["branch"]) == (40, 32, "warm"))
     k2_main = next(r for r in k2_rows if r["input"] == "superpoint_heat")
@@ -2856,6 +3400,11 @@ def main() -> int:
         "launches_demo": demos["image"]["k1_launches"],
         "launches_node": node["paced"]["k1_launches"],
         "launches_train": train["launches"]["k1"],
+        "launches_d10_100": tier10["d10_100"]["launches"],
+        "launches_d10_1024": tier10["d10_1024"]["launches"],
+        "launches_dense_loops": {k: v["launches"]
+                                 for k, v in tier10["dense"].items()},
+        "launches_demo_d10": tier10["demo"]["launches"]["k1"],
         "shapes": rows,
         "checked": k1_checked + est["k1_checked"]
         + node["paced"]["k1_checked"],
@@ -2870,6 +3419,7 @@ def main() -> int:
         "launches_demo": demos["image"]["k2_launches"],
         "launches_node": node["k2_launches"],
         "launches_train": train["launches"]["k2"],
+        "launches_demo_d10": tier10["demo"]["launches"]["k2"],
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows
                            + train["k2_checked"]),
         "ms": k2_main["ms"],
@@ -2890,6 +3440,7 @@ def main() -> int:
         "launches_demo": demos["image"]["k3_launches"],
         "launches_node": node["k3_launches"],
         "launches_train": train["launches"]["k3"],
+        "launches_demo_d10": tier10["demo"]["launches"]["k3"],
         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
         "ms": k3_main["ms"],
         "plain_ms": k3_main["plain_ms"],

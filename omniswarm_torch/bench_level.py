@@ -8,9 +8,10 @@ the other tree's fused-level (K1) and grid-NMS (K2) kernels and this tree's
 on the same inputs in turns: other, this, this, other, twice (CUDA-event
 medians, ``benchutil.time_ms``).
 
-- K1 at each level shape the solve launches (m = 40 with t = 32, 16, 8, 4
-  at F=100; m = 80 with t = 128 ... 4 at F=1024), warm-branch inputs; then
-  K1's per-iteration sums at each F.
+- K1 at each level shape the solves launch (``benchutil.SOLVE_LEVELS``:
+  m = 40 with t = 32, 16, 8, 4 at 5 x 100; m = 80 with t = 128 ... 4 at
+  5 x 1024 and t = 256 ... 4 at 10 x 1024), warm-branch inputs; then K1's
+  per-iteration sums for each drones x frames.
 - K2 at (40, 208, 400), one front-end step, and (3, 40, 70), r = 4, on u**8
   heat: warm (one input, in L2) and cold (``benchutil.time_cold_ms`` over
   10 distinct inputs, read from HBM at the main shape).
@@ -78,7 +79,7 @@ def bench_fused_level(other) -> None:
     rng = np.random.default_rng(0)
     per_iter = {}
     with highp():
-        for F, m, ts in SOLVE_LEVELS:
+        for F, D, m, ts in SOLVE_LEVELS:
             total = dict(ms=0.0, other_ms=0.0, bound_ms=0.0)
             for t in ts:
                 A, B, X0 = (torch.from_numpy(v).cuda()
@@ -88,7 +89,7 @@ def bench_fused_level(other) -> None:
                 ms, oms = in_turns(lambda: time_ms(theirs),
                                    lambda: time_ms(mine))
                 b_ms, by = level_bound_ms(m, t)
-                row = dict(kernel="fused_level", F=F, m=m, t=t,
+                row = dict(kernel="fused_level", F=F, D=D, m=m, t=t,
                            cluster=kernels.fused_level_cluster(m, t),
                            ms=statistics.median(ms), ms_runs=ms,
                            other_ms=statistics.median(oms),
@@ -96,7 +97,7 @@ def bench_fused_level(other) -> None:
                 for key in total:
                     total[key] += row[key]
                 print(json.dumps(row), flush=True)
-            per_iter[F] = total
+            per_iter[f"{D}x{F}"] = total
     print(json.dumps({"k1_ms_per_iteration": per_iter}), flush=True)
 
 

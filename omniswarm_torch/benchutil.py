@@ -19,9 +19,13 @@ from omniswarm_torch.solver.fused_level import (fused_reduction_level,
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12        # H100 SXM FP32 outside the tensor cores
 LEVEL_RTOL = LEVEL_ATOL = 2e-4
-# (F, m, level sizes t): the warm levels one LM iteration of the seed-0,
-# 5-drone solve launches (pack 2 at F=100, pack 4 at F=1024)
-SOLVE_LEVELS = ((100, 40, (32, 16, 8, 4)), (1024, 80, (128, 64, 32, 16, 8, 4)))
+# (F, D, m, level sizes t): the warm levels one LM iteration of a packed
+# solve launches: 5 drones pack 2 at F=100 and 4 at F=1024; 10 drones pack
+# 2 at F=1024 (512 blocks of 80). F=1024's dense-loop window (D=5) launches
+# the D=5 row's levels.
+SOLVE_LEVELS = ((100, 5, 40, (32, 16, 8, 4)),
+                (1024, 5, 80, (128, 64, 32, 16, 8, 4)),
+                (1024, 10, 80, (256, 128, 64, 32, 16, 8, 4)))
 
 
 def time_ms(fn, reps: int = 21, calls: int = 20, warmup: int = 3) -> float:

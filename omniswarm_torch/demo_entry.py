@@ -24,6 +24,14 @@ and the median keyframe latency):
   6 loops per query, the geometric override at 25 inliers, 256 PnP
   hypotheses, yaw gated modulo pi/2) and ``acpt_cost`` 150.
 
+Both take the examples' sizes and settings as arguments (drones, frames,
+drop rate; the image demo also the keyframe stride, ``candidates``,
+``max_loops`` and ``balanced_db``, as run_image_demo.py:84-109 builds its
+``FrontendParams``); the defaults above are the artifacts' sizes.
+
+Host seconds: the image demo's rendering (``render_s``), its frame loop
+(``session_s``) and both demos' final solves (``solve_s``).
+
 Keyframe latency is the demo's: the step's extraction time over the drones
 plus the host time of one ``on_local_keyframe`` (the detector's tick), from
 the third keyframe step on. The metrics add the detectors' median tick
@@ -33,14 +41,25 @@ scoring take a ``Kit`` of the package's classes and helpers (nodes, bus,
 parameters, simulator, metrics, loop keys), so ``tools/demo_anchors.py``
 drives and scores the JAX package with its own.
 
-    python -m omniswarm_torch.demo_entry            # on the GPU
+The examples' command lines, each flag with the example's name and default
+(``--out`` apart: without it the metrics go to stdout as one JSON line);
+both run on the GPU unless ``--device cpu``:
+
+    python -m omniswarm_torch.demo_entry feature [--drones 3] [--frames 30]
+        [--drop 0.05] [--out DIR]            # per-drone reports under DIR
+    python -m omniswarm_torch.demo_entry image [--drones 3] [--frames 24]
+        [--drop 0.05] [--kf-every 2] [--candidates 8] [--no-balanced-db]
+        [--max-loops 6] [--out PATH]         # the metrics JSON at PATH
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
+import sys
 import time
 from collections import Counter
+from pathlib import Path
 from types import ModuleType
 from typing import Callable, NamedTuple
 
@@ -51,17 +70,28 @@ IMAGE_DRONES = 5
 FRAMES = 30
 KF_EVERY = 2             # a keyframe every 2nd frame (both demos)
 DROP = 0.05              # the bus's drop rate
+CANDIDATES = 8           # retrieval candidates per DB (search_nearest_num)
+MAX_LOOPS = 6            # accepted loops per query
 FEATURE_FP = dict(max_db_size=1024, min_loop_matches=12, match_index_dist=5,
                   netvlad_thres=0.5, pnp_iterations=128)
 IMAGE_FP = dict(max_db_size=512, min_loop_matches=17, match_index_dist=4,
                 netvlad_thres=0.35, min_loop_matches_init=12,
-                search_nearest_num=8, max_loops_per_query=6,
+                search_nearest_num=CANDIDATES, max_loops_per_query=MAX_LOOPS,
                 balanced_db_candidates=True, geometric_override_matches=25,
                 pnp_iterations=256, accept_loop_yaw_mod=float(np.pi / 2))
 SOLVER = dict(pcm_redundant=False, max_iterations=60, init_z_movement=0.05)
 REVISIT_M = 1.5          # ground-truth distance of a revisit opportunity
 TRUE_POS_M = 0.30        # a loop is true within 0.30 m and 0.20 rad of GT
 TRUE_YAW = 0.20
+
+
+def image_fp(candidates: int = CANDIDATES, max_loops: int = MAX_LOOPS,
+             balanced_db: bool = True) -> dict:
+    """``IMAGE_FP`` with the example's three front-end flags
+    (run_image_demo.py:84-93)."""
+    return dict(IMAGE_FP, search_nearest_num=candidates,
+                max_loops_per_query=max_loops,
+                balanced_db_candidates=balanced_db)
 
 
 def image_acpt_cost(num_drones: int) -> float:
@@ -199,6 +229,7 @@ def score(kit: Kit, nodes, data, session: dict, guard: int,
 
     per_drone, estimates, all_solved = [], [], True
     t_end = float(data.times[-1])
+    t_solve = time.perf_counter()
     for node in nodes:
         out = node.solve(t=t_end)
         est = node.estimator
@@ -221,6 +252,7 @@ def score(kit: Kit, nodes, data, session: dict, guard: int,
         estimates.append(np.array(est.estimate))
         if report is not None:
             report(int(node.drone_id), est.estimate, g, idx, v)
+    t_solve = time.perf_counter() - t_solve
 
     inlier_keys = set()
     for node in nodes:
@@ -259,19 +291,23 @@ def score(kit: Kit, nodes, data, session: dict, guard: int,
                                     if ticks else None),
         "verify_lanes_per_tick": {int(k): v for k, v in sorted(
             Counter(lanes for lanes, _ in ticks).items())},
+        "solve_s": t_solve,
         "estimates": estimates,
     }
 
 
-def run_feature_demo(kit: Kit, report: Callable = None) -> dict:
-    """``examples/run_demo.py``'s session with the given package's kit;
-    returns ``score``'s metrics (``report``: see ``score``)."""
-    D = FEATURE_DRONES
+def run_feature_demo(kit: Kit, report: Callable = None,
+                     drones: int = FEATURE_DRONES, frames: int = FRAMES,
+                     drop: float = DROP) -> dict:
+    """``examples/run_demo.py``'s session with the given package's kit at
+    ``drones`` x ``frames`` and the bus's ``drop`` rate; returns
+    ``score``'s metrics (``report``: see ``score``)."""
+    D = drones
     data = kit.sim.generate(kit.sim.SimParams(
-        num_drones=D, num_frames=FRAMES, seed=7, radius_range=(2.0, 4.0),
+        num_drones=D, num_frames=frames, seed=7, radius_range=(2.0, 4.0),
         z_range=(0.8, 2.0)))
     world = kit.VisualWorld(seed=7, n_landmarks=800, extent=8.0)
-    bus = kit.LossyBus(drop_rate=DROP, seed=3)
+    bus = kit.LossyBus(drop_rate=drop, seed=3)
     nodes = [kit.DroneNode(d, bus, solver_params=kit.SolverParams(**SOLVER),
                            frontend_params=kit.FrontendParams(**FEATURE_FP),
                            global_dim=world.global_dim, seed=d,
@@ -289,16 +325,20 @@ def run_feature_demo(kit: Kit, report: Callable = None) -> dict:
                  report=report)
 
 
-def run_image_demo(kit: Kit, prep, around_frame: Callable = None) -> dict:
+def run_image_demo(kit: Kit, prep, around_frame: Callable = None,
+                   drop: float = DROP, candidates: int = CANDIDATES,
+                   max_loops: int = MAX_LOOPS,
+                   balanced_db: bool = True) -> dict:
     """``examples/run_image_demo.py``'s session on pre-rendered steps
     (``frontend_entry.prepare``, or the JAX package's rendering in the
-    same order) with the given package's kit. The drones and the keyframe
-    stride are the rendering's."""
+    same order) with the given package's kit, the bus's ``drop`` rate and
+    the example's front-end flags (``image_fp``). The drones and the
+    keyframe stride are the rendering's."""
     from omniswarm_torch.frontend_entry import BASELINE
 
     D = prep.data.gt.shape[1]
-    fp = kit.FrontendParams(**IMAGE_FP)
-    bus = kit.LossyBus(drop_rate=DROP, seed=3)
+    fp = kit.FrontendParams(**image_fp(candidates, max_loops, balanced_db))
+    bus = kit.LossyBus(drop_rate=drop, seed=3)
     nodes = [kit.DroneNode(d, bus, solver_params=kit.SolverParams(
         **SOLVER, acpt_cost=image_acpt_cost(D)), frontend_params=fp,
         global_dim=4096, seed=d, **kit.device_kw) for d in range(D)]
@@ -310,15 +350,19 @@ def run_image_demo(kit: Kit, prep, around_frame: Callable = None) -> dict:
         kfs = cam.on_fisheye_frames_batch(prep.steps[step])
         return kfs, time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     session = drive_session(nodes, bus, prep.data, prep.kf_every,
                             make_keyframes, around_frame)
+    session_s = time.perf_counter() - t0
     out = score(kit, nodes, prep.data, session,
                 guard=IMAGE_FP["match_index_dist"] * prep.kf_every)
-    out["render_s"] = prep.render_s
+    out.update(render_s=prep.render_s, session_s=session_s)
     return out
 
 
-def feature_demo_entry(device="cuda", report_dir=None) -> dict:
+def feature_demo_entry(device="cuda", report_dir=None,
+                       drones: int = FEATURE_DRONES, frames: int = FRAMES,
+                       drop: float = DROP) -> dict:
     """``examples/run_demo.py`` on the port (see the module docstring);
     with ``report_dir``, each solved drone's report directory is in its
     ``per_drone`` entry as ``report``."""
@@ -335,28 +379,34 @@ def feature_demo_entry(device="cuda", report_dir=None) -> dict:
                      times=np.asarray(frames, float), vio=vio)
 
     res = run_feature_demo(port_kit(resolve_device(device)),
-                           report if report_dir is not None else None)
+                           report if report_dir is not None else None,
+                           drones, frames, drop)
     for d in res["per_drone"]:
         if d["drone"] in dirs:
             d["report"] = dirs[d["drone"]]
     return res
 
 
-def image_demo_entry(device="cuda", prep=None, around_frame=None) -> dict:
+def image_demo_entry(device="cuda", prep=None, around_frame=None,
+                     drones: int = IMAGE_DRONES, frames: int = FRAMES,
+                     kf_every: int = KF_EVERY, drop: float = DROP,
+                     candidates: int = CANDIDATES, max_loops: int = MAX_LOOPS,
+                     balanced_db: bool = True) -> dict:
     """``examples/run_image_demo.py`` on the port (see the module
     docstring). ``prep``: the demo's rendered steps,
-    ``frontend_entry.prepare()`` (rendered here if None);
-    ``around_frame(k)``: a context manager around frame k (a tracer's
-    hook). Adds K2's launches to the metrics."""
+    ``frontend_entry.prepare(drones, frames, kf_every)`` (rendered here if
+    None); ``around_frame(k)``: a context manager around frame k (a
+    tracer's hook). Adds K2's launches to the metrics."""
     from omniswarm_torch.core.device import resolve_device
     from omniswarm_torch.frontend_entry import prepare
     from omniswarm_torch.ops.frontend_kernels import grid_nms
 
     dev = resolve_device(device)
     if prep is None:
-        prep = prepare(IMAGE_DRONES, FRAMES, KF_EVERY)
+        prep = prepare(drones, frames, kf_every)
     k2_0 = grid_nms.launches
-    out = run_image_demo(port_kit(dev), prep, around_frame)
+    out = run_image_demo(port_kit(dev), prep, around_frame, drop, candidates,
+                         max_loops, balanced_db)
     out["k2_launches"] = grid_nms.launches - k2_0
     out["keyframe_steps"] = len(prep.steps)
     return out
@@ -367,6 +417,79 @@ def summary(res: dict) -> dict:
     return {k: v for k, v in res.items() if k != "estimates"}
 
 
+# Files of the repository that predate the port (the reference's demo
+# artifacts): --out never writes them.
+REFERENCE_OUTPUTS = ("IMAGE_DEMO*.json", "demo_out")
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def parser() -> argparse.ArgumentParser:
+    """The two subcommands, each flag with the example's name and default
+    (examples/run_demo.py:30-35, examples/run_image_demo.py:50-72), but
+    ``--out``, which defaults to stdout; and ``--device``."""
+    ap = argparse.ArgumentParser(prog="python -m omniswarm_torch.demo_entry",
+                                 description=__doc__.split("\n\n")[0])
+    sub = ap.add_subparsers(dest="demo", required=True)
+    feature = sub.add_parser("feature", help="examples/run_demo.py")
+    feature.add_argument("--drones", type=int, default=3)
+    feature.add_argument("--frames", type=int, default=30)
+    feature.add_argument("--drop", type=float, default=0.05)
+    feature.add_argument("--out", default=None,
+                         help="write each drone's report under OUT/drone<d>/")
+    image = sub.add_parser("image", help="examples/run_image_demo.py")
+    image.add_argument("--drones", type=int, default=3)
+    image.add_argument("--frames", type=int, default=24)
+    image.add_argument("--drop", type=float, default=0.05)
+    image.add_argument("--kf-every", type=int, default=2)
+    image.add_argument("--out", default=None,
+                       help="write the run's metrics JSON here")
+    image.add_argument("--candidates", type=int, default=8,
+                       help="search_nearest_num: retrieval candidates per "
+                            "query")
+    image.add_argument("--no-balanced-db", dest="balanced_db",
+                       action="store_false", default=True,
+                       help="disable per-DB candidate quotas")
+    image.add_argument("--max-loops", type=int, default=6,
+                       help="max accepted loops per query")
+    for p in (feature, image):
+        p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    return ap
+
+
+def reference_output(path) -> bool:
+    """Whether ``path`` is one of the repository's pre-port demo artifacts
+    (``REFERENCE_OUTPUTS`` at its root) or lies inside one."""
+    p = Path(path).resolve()
+    return any(q.parent == ROOT and q.match(pattern)
+               for q in (p, *p.parents) for pattern in REFERENCE_OUTPUTS)
+
+
+def main(argv=None) -> dict:
+    """Run one demo from the command line; returns its metrics (the JSON
+    line, without estimates)."""
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.out is not None and reference_output(args.out):
+        ap.error(f"--out {args.out}: a reference artifact of the repository;"
+                 f" write elsewhere")
+    if args.demo == "feature":
+        res = summary(feature_demo_entry(
+            args.device, report_dir=args.out, drones=args.drones,
+            frames=args.frames, drop=args.drop))
+        print(json.dumps(res), flush=True)
+        return res
+    res = summary(image_demo_entry(
+        args.device, drones=args.drones, frames=args.frames,
+        kf_every=args.kf_every, drop=args.drop, candidates=args.candidates,
+        max_loops=args.max_loops, balanced_db=args.balanced_db))
+    if args.out is None:
+        print(json.dumps(res), flush=True)
+    else:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(res, indent=1) + "\n")
+        print(f"image demo metrics -> {args.out}", file=sys.stderr)
+    return res
+
+
 if __name__ == "__main__":
-    print(json.dumps(summary(feature_demo_entry())))
-    print(json.dumps(summary(image_demo_entry())))
+    main()

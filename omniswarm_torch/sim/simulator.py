@@ -129,19 +129,24 @@ def proximity_loops(gt, rng, *, loop_every: int = 5,
     so the replay synthesizes them the same way its simulator does.
     """
     F, D = gt.shape[:2]
+    pos = np.asarray(gt)[..., :3]
     loops: List[LoopMeas] = []
     for k in range(0, F, loop_every):
         for da in range(D):
-            # candidate: any earlier keyframe of any drone within gate
+            # candidate: any earlier keyframe of any drone within gate, the
+            # nearest, the first in (kb, db) order among equals. All the
+            # distances at once pick the near-nearest pairs; the same
+            # per-pair norm as the reference's scan decides among those
+            # alone, in its order, so the choice is the reference's.
+            near = np.linalg.norm(pos[k, da] - pos[:k + 1], axis=-1)
+            near[max(0, k - 2):, da] = np.inf     # MATCH_INDEX_DIST
+            lo = near.min()
             best = None
-            for kb in range(0, k + 1):
-                for db in range(D):
-                    if db == da and abs(kb - k) < 3:  # MATCH_INDEX_DIST
-                        continue
-                    dist = np.linalg.norm(gt[k, da, :3] - gt[kb, db, :3])
-                    if dist < loop_max_distance:
-                        if best is None or dist < best[0]:
-                            best = (dist, kb, db)
+            for kb, db in np.argwhere(near <= lo * (1 + 1e-6) + 1e-9):
+                dist = np.linalg.norm(gt[k, da, :3] - gt[kb, db, :3])
+                if dist < loop_max_distance:
+                    if best is None or dist < best[0]:
+                        best = (dist, int(kb), int(db))
             if best is None:
                 continue
             _, kb, db = best

@@ -2,6 +2,7 @@
 """Reference anchors for the demos phase (9a) of ``chip_smoke.py``.
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tools/demo_anchors.py [--feature-only]
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tools/demo_anchors.py --drones 10
 
 Drives the two sessions of ``omniswarm_torch/demo_entry.py``
 (``run_feature_demo``, ``run_image_demo``: the frame loop of the examples)
@@ -12,6 +13,11 @@ reference's ``RoomWorld`` and ``examples/run_image_demo.py``'s
 ``render_direction_stereo`` in the demo's order. The feature demo is 3
 drones x 30 frames over the ``VisualWorld``; the image demo 5 drones x 30
 frames, 75 keyframes of 4-direction stereo at 400 x 208.
+
+With ``--drones D`` (D other than 5) it runs only the image demo, at D
+drones x 30 frames (phase 13a's 10-drone tier: 150 keyframes, 80 views a
+step), under the key ``image_d<D>``; at D=10 it took 4548.8 s and 12.11 GB
+peak RSS on an 8-core CPU that other jobs shared.
 
 Prints one JSON object to paste into ``chip_smoke.py``'s ``DEMO_ANCHORS``:
 per demo the unique loop keys, the false ones, recall, precision before and
@@ -59,9 +65,10 @@ def reference_kit():
                OmniLoopCam, sim, metrics, loop_key, delta_pose_np, wrap, {})
 
 
-def reference_prep():
-    """The image demo's views rendered by the reference, in the demo's
-    order (run_image_demo.py:78-140), as ``frontend_entry.Prepared``."""
+def reference_prep(D: int):
+    """The image demo's views for ``D`` drones rendered by the reference,
+    in the demo's order (run_image_demo.py:78-140), as
+    ``frontend_entry.Prepared``."""
     from omniswarm_torch import demo_entry as de
     from omniswarm_torch.frontend_entry import Prepared
     from omniswarm_tpu import sim
@@ -73,7 +80,7 @@ def reference_prep():
         "run_image_demo", ROOT / "examples" / "run_image_demo.py")
     demo = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(demo)
-    D, F, kf_every = de.IMAGE_DRONES, de.FRAMES, de.KF_EVERY
+    F, kf_every = de.FRAMES, de.KF_EVERY
     data = sim.generate(sim.SimParams(
         num_drones=D, num_frames=F, seed=7, radius_range=(2.0, 3.5),
         z_range=(0.8, 2.0)))
@@ -96,16 +103,30 @@ def reference_prep():
 
 
 def main() -> int:
-    from omniswarm_torch.demo_entry import run_feature_demo, run_image_demo
+    import argparse
 
+    from omniswarm_torch.demo_entry import (IMAGE_DRONES, run_feature_demo,
+                                            run_image_demo)
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--feature-only", action="store_true")
+    ap.add_argument("--drones", type=int, default=IMAGE_DRONES,
+                    help="image demo drones; other than 5: the image demo "
+                         "alone, as image_d<D>")
+    args = ap.parse_args()
     kit = reference_kit()
     t0 = time.perf_counter()
-    out = {"feature": anchors_of(run_feature_demo(kit))}
-    print(f"feature demo {time.perf_counter() - t0:.1f} s", file=sys.stderr,
-          flush=True)
-    if "--feature-only" not in sys.argv:
+    out = {}
+    if args.drones == IMAGE_DRONES:
+        out["feature"] = anchors_of(run_feature_demo(kit))
+        print(f"feature demo {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
+    if not args.feature_only:
         t1 = time.perf_counter()
-        out["image"] = anchors_of(run_image_demo(kit, reference_prep()))
+        key = ("image" if args.drones == IMAGE_DRONES
+               else f"image_d{args.drones}")
+        out[key] = anchors_of(run_image_demo(kit, reference_prep(
+            args.drones)))
         print(f"image demo {time.perf_counter() - t1:.1f} s",
               file=sys.stderr, flush=True)
     rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20

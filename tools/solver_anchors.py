@@ -21,9 +21,32 @@ num_frames=F, seed=0))``:
   ``lm_solve_multi_init`` (the first 4 of the inits above) on
   ``build_graph_from_sim(enable_detections=True)``.
 
+and for phase 13a (the 10-drone tier and the loop-dense window):
+
+- ``d10_100``: bench.py's 10-drone row (:340-358), ``lm_solve_bt`` at 10 x
+  100, seed 3, 50 iterations (the Woodbury path at pack 1);
+- ``d10_1024``: ``lm_solve_bt`` at 10 x 1024, seed 0, 20 iterations (PCG
+  by the "auto" rule, pack 2: 80-wide blocks);
+- ``dense_loops_1024``: bench.py's loop-dense serving window (:307-337),
+  5 x 1024, seed 4, ``loop_every=2`` (2,555 loops), 25 iterations: PCG by
+  the "auto" rule at ``cg_iters`` 24, 16, 12 and 8 (``pcg24`` ...
+  ``pcg8``) and ``exact_linear=True`` (``exact``), the ground truth.
+
+The phase 13a entries run the reference's ``bt_factor`` on its TPU branch
+(``reference_fused_levels``): the warm levels of a packed solve go through
+its fused Pallas level, in interpret mode on the CPU, as they go through K1
+on the card. Its CPU branch (XLA levels, the same arithmetic rounded
+otherwise) splits from it on the loop-dense window at 8 CG sweeps, an
+inexact solve far from its minimum: 4398.60 against 4449.52 after 25
+iterations (the port: 4448.79 on the card through K1, 4394.12 on the CPU
+with ``fused=False``); at 24 sweeps the two lie 3.6e-5 apart.
+
 Each entry holds the final cost, the initial cost and the mean relative ATE
-against the ground truth (per lane for the batch). About 2 minutes and
-under 2 GB on one CPU core.
+against the ground truth (per lane for the batch), and raw VIO's relative
+ATE for the phase 13a entries. ``--only NAME ...`` runs the named entries
+alone. Phase 13a's entries (``--only d10_100 d10_1024 dense_loops_1024``)
+take about 30 minutes and 7.5 GB peak RSS on an 8-core CPU, 25 of those
+minutes the exact dense-loop solve, whose capacitance has 10,220 columns.
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tools/solver_anchors.py --stall
 
@@ -33,8 +56,8 @@ PCG, and prints their costs: the fast path stalls far above the other two.
 """
 from __future__ import annotations
 
+import contextlib
 import json
-import sys
 import time
 
 import numpy as np
@@ -73,61 +96,151 @@ def stall() -> None:
     print(json.dumps(out))
 
 
-def main() -> None:
+def summary(res, gt, t0, vio=None) -> dict:
+    """A solve's final and initial cost, iterations, relative ATE (per lane
+    for a batch; and raw VIO's with ``vio``) and seconds since ``t0``."""
+    from omniswarm_tpu.eval import metrics
+
+    cost = np.asarray(res.cost)
+    poses = np.asarray(res.poses)
+    ate = ([metrics.mean_relative_ate(p, gt) for p in poses]
+           if cost.ndim else metrics.mean_relative_ate(poses, gt))
+    out = dict(cost=cost.tolist(),
+               initial_cost=np.asarray(res.initial_cost).tolist(),
+               iterations=int(res.iterations), relative_ate=ate)
+    if vio is not None:
+        out["vio_relative_ate"] = metrics.mean_relative_ate(vio, gt)
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+@contextlib.contextmanager
+def reference_fused_levels():
+    """The reference's ``bt_factor`` takes its TPU branch on the CPU: warm
+    levels of packed solves through ``pallas_level.fused_reduction_level``,
+    which runs in interpret mode off the TPU."""
+    import jax
+
+    from omniswarm_tpu.solver import block_tridiag
+
+    class TPUBackend:
+        def __getattr__(self, name):
+            return getattr(jax, name)
+
+        @staticmethod
+        def default_backend():
+            return "tpu"
+
+    block_tridiag.jax = TPUBackend()
+    try:
+        yield
+    finally:
+        block_tridiag.jax = jax
+
+
+def tier10(out: dict, only) -> None:
+    """Phase 13a's entries (see the module docstring) into ``out``."""
     import jax.numpy as jnp
 
     from omniswarm_tpu import sim
-    from omniswarm_tpu.eval import metrics
+    from omniswarm_tpu.solver import dense
+
+    def solve(params, iters, **kw):
+        data = sim.generate(params)
+        t0 = time.perf_counter()
+        res = dense.lm_solve_bt(
+            dense.dense_graph_from_sim(data),
+            jnp.asarray(data.vio, jnp.float32), max_iterations=iters,
+            function_tolerance=0.0, **kw)
+        rec = summary(res, data.gt, t0, data.vio)
+        rec["loops"] = len(data.loops)
+        return rec
+
+    if "d10_100" in only:
+        out["d10_100"] = solve(sim.SimParams(
+            num_drones=10, num_frames=100, seed=3), 50)
+    if "d10_1024" in only:
+        out["d10_1024"] = solve(sim.SimParams(
+            num_drones=10, num_frames=1024, seed=0), 20)
+    if "dense_loops_1024" in only:
+        params = sim.SimParams(num_drones=5, num_frames=1024, seed=4,
+                               loop_every=2)
+        runs = {f"pcg{n}": dict(cg_iters=n) for n in (24, 16, 12, 8)}
+        runs["exact"] = dict(exact_linear=True)
+        out["dense_loops_1024"] = {
+            name: solve(params, 25, **kw) for name, kw in runs.items()}
+
+
+TIER10 = ("d10_100", "d10_1024", "dense_loops_1024")
+BASE = ("pcg_1024", "exact_100", "batch_100", "cov_100", "dense_100",
+        "generic_100", "multi_100")
+
+
+def base(out: dict, only) -> None:
+    """The earlier phases' entries (see the module docstring) into ``out``."""
+    import jax.numpy as jnp
+
+    from omniswarm_tpu import sim
     from omniswarm_tpu.solver import dense, gauss_newton
 
     kw = dict(max_iterations=20, function_tolerance=0.0)
-    out = {}
 
-    def record(name, res, gt, t0):
-        cost = np.asarray(res.cost)
-        poses = np.asarray(res.poses)
-        ate = ([metrics.mean_relative_ate(p, gt) for p in poses]
-               if cost.ndim else metrics.mean_relative_ate(poses, gt))
-        out[name] = dict(cost=cost.tolist(),
-                         initial_cost=np.asarray(res.initial_cost).tolist(),
-                         iterations=int(res.iterations), relative_ate=ate,
-                         seconds=round(time.perf_counter() - t0, 1))
+    def record(name, solve, gt):
+        if name in only:
+            t0 = time.perf_counter()
+            out[name] = summary(solve(), gt, t0)
 
     data = sim.generate(sim.SimParams(num_drones=5, num_frames=1024, seed=0))
-    t0 = time.perf_counter()
-    record("pcg_1024", dense.lm_solve_bt(
+    record("pcg_1024", lambda: dense.lm_solve_bt(
         dense.dense_graph_from_sim(data), jnp.asarray(data.vio, jnp.float32),
-        linear="pcg", **kw), data.gt, t0)
+        linear="pcg", **kw), data.gt)
 
     data = sim.generate(sim.SimParams(num_drones=5, num_frames=100, seed=0))
     graph = dense.dense_graph_from_sim(data)
     init = jnp.asarray(data.vio, jnp.float32)
-    t0 = time.perf_counter()
-    record("exact_100", dense.lm_solve_bt(graph, init, exact_linear=True,
-                                          **kw), data.gt, t0)
-    t0 = time.perf_counter()
     inits = perturbed_inits(data.vio, 8)
-    record("batch_100", dense.lm_solve_bt_batched(
-        graph, jnp.asarray(inits), **kw), data.gt, t0)
-    t0 = time.perf_counter()
-    res = dense.lm_solve_bt(graph, init, **kw)
-    query = np.asarray([[99, d] for d in range(5)], np.int32)
-    cov = np.asarray(dense.pose_covariances_jit(graph, res.poses,
-                                                jnp.asarray(query)))
-    out["cov_100"] = dict(query=query.tolist(),
-                          diag=np.diagonal(cov, axis1=1, axis2=2).tolist(),
-                          cost=float(res.cost),
-                          seconds=round(time.perf_counter() - t0, 1))
-    t0 = time.perf_counter()
-    record("dense_100", dense.lm_solve_dense(graph, init, **kw), data.gt, t0)
+    record("exact_100", lambda: dense.lm_solve_bt(
+        graph, init, exact_linear=True, **kw), data.gt)
+    record("batch_100", lambda: dense.lm_solve_bt_batched(
+        graph, jnp.asarray(inits), **kw), data.gt)
+    if "cov_100" in only:
+        t0 = time.perf_counter()
+        res = dense.lm_solve_bt(graph, init, **kw)
+        query = np.asarray([[99, d] for d in range(5)], np.int32)
+        cov = np.asarray(dense.pose_covariances_jit(graph, res.poses,
+                                                    jnp.asarray(query)))
+        out["cov_100"] = dict(query=query.tolist(),
+                              diag=np.diagonal(cov, axis1=1,
+                                               axis2=2).tolist(),
+                              cost=float(res.cost),
+                              seconds=round(time.perf_counter() - t0, 1))
+    record("dense_100", lambda: dense.lm_solve_dense(graph, init, **kw),
+           data.gt)
     fg, finit = sim.build_graph_from_sim(data, enable_detections=True)
-    t0 = time.perf_counter()
-    record("generic_100", gauss_newton.lm_solve(fg, finit, **kw), data.gt, t0)
-    t0 = time.perf_counter()
-    record("multi_100", gauss_newton.lm_solve_multi_init(
-        fg, jnp.asarray(inits[:4]), **kw), data.gt, t0)
+    record("generic_100", lambda: gauss_newton.lm_solve(fg, finit, **kw),
+           data.gt)
+    record("multi_100", lambda: gauss_newton.lm_solve_multi_init(
+        fg, jnp.asarray(inits[:4]), **kw), data.gt)
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--stall", action="store_true")
+    ap.add_argument("--only", nargs="+", choices=BASE + TIER10,
+                    default=BASE + TIER10)
+    args = ap.parse_args(argv)
+    if args.stall:
+        stall()
+        return
+    out = {}
+    if set(args.only) & set(BASE):
+        base(out, args.only)
+    with reference_fused_levels():
+        tier10(out, args.only)
     print(json.dumps(out))
 
 
 if __name__ == "__main__":
-    stall() if "--stall" in sys.argv[1:] else main()
+    main()
