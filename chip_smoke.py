@@ -67,7 +67,8 @@ non-zero without printing a result.
    (0, -inf) for the masked query, similarities within 1e-5 relative. The
    same timings (library: argmax of the masked matmul).
 7. Front-end path: omniswarm_torch.frontend_entry.frontend_entry() at
-   full size (5 drones x 15 keyframe steps of 40 views at 400 x 208). No
+   full size (5 drones x 15 keyframe steps of 40 views at 400 x 208; its
+   views rendered once for this phase and phase 9a's image demo). No
    plain version may run; K2 and K3 launch 15 times each. Held against the
    JAX package's CPU anchors: each keyframe's landmark count, keypoint sums,
    inverse-range landmark sums and global-descriptor projection within
@@ -103,7 +104,7 @@ non-zero without printing a result.
    the anchor's count, each drone's cost within 1% and relative ATE within
    0.5 cm of its anchor, every drone solved. The image demo (5 drones x 30
    frames, 75 keyframes of 4-direction stereo at 400 x 208, the 600 views
-   rendered once for both runs): every drone solved,
+   of phase 7's render, for both runs): every drone solved,
    recall within 0.03 of its anchor, precision >= anchor - 0.02, post-PCM
    precision >= anchor - 0.01, each drone's relative ATE <= anchor + 0.5 cm
    and below raw VIO's; K2 launched once per keyframe step and no plain
@@ -222,12 +223,46 @@ non-zero without printing a result.
    bars, every one of the ten drones solved, K2 launched once a keyframe
    step (15) at (80, 208, 400), K1 and K3 never, no plain kernel version
    run. One "tier10" JSON line.
+14a. The measurement entry points, after 13a. (a) The bundled SuperPoint
+   and both NetVLAD checkpoints (v2 and v1) with their trunks in bf16
+   against f32 (highp) on 4 render_shapes images at 400 x 208, at
+   tests/test_bf16_frontend.py's bars: heat within 0.03, coarse descriptor
+   cosine above 0.995, more than 90% of each image's keypoints matched
+   within 1 px, global cosine above 0.99 and pairwise similarities within
+   0.02. (b) K2 at the bench's front-end shapes (4, 8, 16 and 64 views of
+   208 x 400) bit-exact against its plain version on random u**8 heat with
+   and without NaN cells; timed warm and cold (distinct maps over 3x the
+   L2), beside the plain version, the library call and the bytes bound.
+   (c) omniswarm_torch.cpu_baseline.measure with 1 repetition and no
+   warm-up call but torch_cpu_bt's (the module takes 3 after one) into
+   build/chip_smoke/, then
+   omniswarm_torch.bench.run at its own sizes with one timed solve a row,
+   the row's first (the module warms up, then takes the medians of 5 and
+   3), and 1 run of front-end calls (the module: 3), printed as one
+   "bench" line:
+   every key
+   of BENCH_r05.json's parsed, no *_error key, the fused-vs-unfused
+   kf1024 cost within bench.py's 2e-3, K1 launched in the headline,
+   efficiency, kf1024 and dense-loop rows and K2 in the front-end row,
+   only at the shapes of (b), K3 never, no plain version; K1's level
+   shapes outside the kernel phase's checked against the plain version.
+   (d) omniswarm_torch.online_window.session at 1,024 keyframes and 2,000
+   loops with 12 live solves, each solve held to ONLINE_ANCHORS
+   (tools/online_window_anchors.py: the JAX estimator on the CPU through
+   tools/online_window_bench.py's own functions) by
+   online_window.held_to: window and PCM inlier sets equal, cost within
+   1%, iterations equal where a solve runs to the cap (near the minimum,
+   rounding decides whether a warm solve converges or stalls, so the
+   count is printed beside its anchor's); K1 launched (new level shapes
+   checked after the run), K2 and K3 never. One "online window" line.
 8. One JSON line with the solver paths' numbers, one with the kernels'
    numbers (K1's launches on the estimator path as launches_estimator, on
    the node's threaded session as launches_node; K1's, K2's and K3's on the
    training path as launches_train and on the 10-drone demo as
    launches_demo_d10; K1's on phase 13a's solves as launches_d10_100,
-   launches_d10_1024 and launches_dense_loops), then the result line.
+   launches_d10_1024 and launches_dense_loops; each kernel's on phase
+   14a's bench rows as launches_bench and on the online window as
+   launches_online_window), then the result line.
 """
 from __future__ import annotations
 
@@ -235,6 +270,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1337,6 +1373,161 @@ D10_ATE_BAR = 0.15          # tests/test_scale10.py:25, held at 10 x 100
 DENSE_CG_ITERS = (24, 16, 12, 8)
 DENSE_ITERS = 25            # bench.py:322
 D10_DEMO_STEPS = 15         # keyframe steps of the 10 x 30 image demo
+# Phase 14a: the measurement entry points. bf16 trunks against f32 at
+# tests/test_bf16_frontend.py's bars; K2 at the bench's front-end batches
+# (the bf16 rows at 4, 16, 64 views; the fused row's 4 stereo pairs, 8);
+# the CPU baseline and the bench at their own sizes with fewer repetitions
+# (the script's time limit): the baseline's rows each timed once with no
+# warm-up call but torch_cpu_bt's, the bench's solver rows each timing
+# their first solve (BENCH_REPS), where the modules warm up and take
+# medians of 3 (baseline), 5 and 3 (bench); the online window held to
+# ONLINE_ANCHORS
+# (PYTHONPATH=. JAX_PLATFORMS=cpu python tools/online_window_anchors.py
+# --solves 12).
+BF16_HW, BF16_BATCH = (208, 400), 4
+BF16_BARS = dict(heat=0.03, desc_cos=0.995, kp_matched=0.9, kp_px=1.0,
+                 global_cos=0.99, pairwise=0.02)
+K2_BENCH_SHAPES = ((4, 208, 400), (8, 208, 400), (16, 208, 400),
+                   (64, 208, 400))
+BENCH_REPS = dict(reps=1, big_reps=1, frontend_runs=1, warm_up=False)
+CPU_BASELINE_REPS = 1
+ONLINE_SOLVES = 12
+ONLINE_ANCHORS = {'frames': 1024,
+                  'loops': 2000,
+                  'solves': [{'window': [[100, 1123]],
+                              'inliers': {'0-1': [234, 'f02276f7ee38'],
+                                          '0-2': [209, '73b64ac6f191'],
+                                          '0-3': [207, '0fead4feebdf'],
+                                          '0-4': [195, '1210ab5d7faf']},
+                              'iterations': 8,
+                              'cost': 1096.083496,
+                              'finish_init': True},
+                             {'window': [[100, 985], [987, 1123],
+                                         [1125, 1125]],
+                              'inliers': {'0-1': [234, 'f02276f7ee38'],
+                                          '0-2': [210, '55da2e4810ba'],
+                                          '0-3': [207, '0fead4feebdf'],
+                                          '0-4': [196, '3e47b029afd3']},
+                              'iterations': 15,
+                              'cost': 1095.751953,
+                              'finish_init': True},
+                             {'window': [[100, 665], [667, 985], [987, 1123],
+                                         [1125, 1126]],
+                              'inliers': {'0-1': [234, 'f02276f7ee38'],
+                                          '0-2': [211, 'ce77e8179eb8'],
+                                          '0-3': [207, '0fead4feebdf'],
+                                          '0-4': [196, '3e47b029afd3']},
+                              'iterations': 5,
+                              'cost': 1096.31604,
+                              'finish_init': True},
+                             {'window': [[100, 189], [191, 665], [667, 985],
+                                         [987, 1123], [1125, 1127]],
+                              'inliers': {'0-1': [234, 'f02276f7ee38'],
+                                          '0-2': [211, 'ce77e8179eb8'],
+                                          '0-3': [207, '0fead4feebdf'],
+                                          '0-4': [197, 'b996641c7d58']},
+                              'iterations': 5,
+                              'cost': 1097.131592,
+                              'finish_init': True},
+                             {'window': [[100, 189], [191, 484], [486, 665],
+                                         [667, 985], [987, 1123],
+                                         [1125, 1128]],
+                              'inliers': {'0-1': [234, 'f02276f7ee38'],
+                                          '0-2': [211, 'ce77e8179eb8'],
+                                          '0-3': [207, '0fead4feebdf'],
+                                          '0-4': [197, 'b996641c7d58']},
+                              'iterations': 7,
+                              'cost': 1097.605347,
+                              'finish_init': True},
+                             {'window': [[100, 189], [191, 374], [376, 484],
+                                         [486, 665], [667, 985], [987, 1123],
+                                         [1125, 1129]],
+                              'inliers': {'0-1': [234, 'f02276f7ee38'],
+                                          '0-2': [211, 'ce77e8179eb8'],
+                                          '0-3': [207, '0fead4feebdf'],
+                                          '0-4': [198, 'f3681ddac16c']},
+                              'iterations': 4,
+                              'cost': 1097.28186,
+                              'finish_init': True},
+                             {'window': [[100, 189], [191, 374], [376, 484],
+                                         [486, 665], [667, 917], [919, 985],
+                                         [987, 1123], [1125, 1130]],
+                              'inliers': {'0-1': [234, 'f02276f7ee38'],
+                                          '0-2': [211, 'ce77e8179eb8'],
+                                          '0-3': [207, '0fead4feebdf'],
+                                          '0-4': [198, 'f3681ddac16c']},
+                              'iterations': 4,
+                              'cost': 1097.595459,
+                              'finish_init': True},
+                             {'window': [[100, 124], [126, 189], [191, 374],
+                                         [376, 484], [486, 665], [667, 917],
+                                         [919, 985], [987, 1123],
+                                         [1125, 1131]],
+                              'inliers': {'0-1': [234, 'f02276f7ee38'],
+                                          '0-2': [211, 'ce77e8179eb8'],
+                                          '0-3': [208, 'f00eee3133c7'],
+                                          '0-4': [198, 'f3681ddac16c']},
+                              'iterations': 5,
+                              'cost': 1097.336426,
+                              'finish_init': True},
+                             {'window': [[100, 124], [126, 189], [191, 374],
+                                         [376, 469], [471, 484], [486, 665],
+                                         [667, 917], [919, 985], [987, 1123],
+                                         [1125, 1132]],
+                              'inliers': {'0-1': [234, 'f02276f7ee38'],
+                                          '0-2': [211, 'ce77e8179eb8'],
+                                          '0-3': [208, 'f00eee3133c7'],
+                                          '0-4': [198, 'f3681ddac16c']},
+                              'iterations': 7,
+                              'cost': 1097.515625,
+                              'finish_init': True},
+                             {'window': [[100, 124], [126, 189], [191, 348],
+                                         [350, 374], [376, 469], [471, 484],
+                                         [486, 665], [667, 917], [919, 985],
+                                         [987, 1123], [1125, 1133]],
+                              'inliers': {'0-1': [234, 'f02276f7ee38'],
+                                          '0-2': [211, 'ce77e8179eb8'],
+                                          '0-3': [209, '0014ecce9922'],
+                                          '0-4': [198, 'f3681ddac16c']},
+                              'iterations': 3,
+                              'cost': 1098.078003,
+                              'finish_init': True},
+                             {'window': [[100, 124], [126, 189], [191, 348],
+                                         [350, 374], [376, 469], [471, 484],
+                                         [486, 665], [667, 763], [765, 917],
+                                         [919, 985], [987, 1123],
+                                         [1125, 1134]],
+                              'inliers': {'0-1': [235, '05fcf67668dd'],
+                                          '0-2': [211, 'ce77e8179eb8'],
+                                          '0-3': [210, 'ae40ce0dc3bf'],
+                                          '0-4': [198, 'f3681ddac16c']},
+                              'iterations': 5,
+                              'cost': 1098.700684,
+                              'finish_init': True},
+                             {'window': [[100, 124], [126, 189], [191, 348],
+                                         [350, 374], [376, 469], [471, 484],
+                                         [486, 555], [557, 665], [667, 763],
+                                         [765, 917], [919, 985], [987, 1123],
+                                         [1125, 1135]],
+                              'inliers': {'0-1': [235, '05fcf67668dd'],
+                                          '0-2': [211, 'ce77e8179eb8'],
+                                          '0-3': [210, 'ae40ce0dc3bf'],
+                                          '0-4': [198, 'f3681ddac16c']},
+                              'iterations': 5,
+                              'cost': 1099.76001,
+                              'finish_init': True},
+                             {'window': [[100, 124], [126, 189], [191, 348],
+                                         [350, 352], [354, 374], [376, 469],
+                                         [471, 484], [486, 555], [557, 665],
+                                         [667, 763], [765, 917], [919, 985],
+                                         [987, 1123], [1125, 1136]],
+                              'inliers': {'0-1': [235, '05fcf67668dd'],
+                                          '0-2': [211, 'ce77e8179eb8'],
+                                          '0-3': [210, 'ae40ce0dc3bf'],
+                                          '0-4': [199, 'd5afaf0cb4c1']},
+                              'iterations': 4,
+                              'cost': 1099.808472,
+                              'finish_init': True}]}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1411,25 +1602,20 @@ def k1_per_iteration_of(rows, path):
 
 @contextlib.contextmanager
 def k1_recording():
-    """Sets K1's counts to 0 and records the (m, t) of every kernel launch
-    (the wrapper counts) into the Counter it yields."""
-    from omniswarm_torch import kernels
+    """Sets K1's counts to 0 and counts the (m, t) of every kernel launch
+    (the wrapper counts) into the Counter it yields, filled on exit."""
+    from omniswarm_torch.benchutil import k1_levels
     from omniswarm_torch.solver.fused_level import (
         fused_reduction_level, fused_reduction_level_ref)
 
-    launch, levels = kernels.fused_level, collections.Counter()
-
-    def recording_launch(A, B, X0, guard):
-        levels[A.shape[-1], A.shape[0] // 2] += 1
-        return launch(A, B, X0, guard)
-
-    kernels.fused_level = recording_launch
+    levels = collections.Counter()
     fused_reduction_level.launches = 0
     fused_reduction_level_ref.calls = 0
-    try:
-        yield levels
-    finally:
-        kernels.fused_level = launch
+    with k1_levels() as launched:
+        try:
+            yield levels
+        finally:
+            levels.update(launched)
 
 
 @contextlib.contextmanager
@@ -1548,18 +1734,6 @@ def held(name: str, got: float, want: float, rtol: float = 0.01,
           f"anchor {want!r}")
 
 
-def perturbed_inits(vio: np.ndarray, lanes: int) -> np.ndarray:
-    """bench.py's batch inits: lane 0 VIO, lanes 1.. VIO + N(0, 0.4) on the
-    positions of every drone but the first (numpy default_rng(0))."""
-    rng = np.random.default_rng(0)
-    F, D = vio.shape[:2]
-    inits = np.tile(np.asarray(vio, np.float32)[None], (lanes, 1, 1, 1))
-    for b in range(1, lanes):
-        inits[b, :, 1:, :3] += rng.normal(
-            0, 0.4, size=(F, D - 1, 3)).astype(np.float32)
-    return inits
-
-
 def timed(fn):
     """(result, synchronised wall seconds) of fn()."""
     import torch
@@ -1654,6 +1828,7 @@ def exact_phase() -> dict:
 def batch_phase(data, graph) -> dict:
     import torch
 
+    from omniswarm_torch.benchutil import batch_inits
     from omniswarm_torch.eval import metrics
     from omniswarm_torch.solver.dense import lm_solve_bt, lm_solve_bt_batched
     from omniswarm_torch.solver.fused_level import fused_reduction_level
@@ -1661,7 +1836,7 @@ def batch_phase(data, graph) -> dict:
     a = SOLVER_ANCHORS["batch_100"]
     kw = dict(device="cuda", max_iterations=SOLVER_ITERS,
               function_tolerance=0.0)
-    inits = perturbed_inits(data.vio, 8)
+    inits = batch_inits(data.vio, 8)
     launches0 = fused_reduction_level.launches
     res, seconds = timed(lambda: lm_solve_bt_batched(graph, inits, **kw))
     again = lm_solve_bt_batched(graph, inits, **kw)
@@ -1727,6 +1902,7 @@ def covariance_phase(graph) -> dict:
 
 
 def gold_phase(data, graph) -> list:
+    from omniswarm_torch.benchutil import batch_inits
     from omniswarm_torch.eval import metrics
     from omniswarm_torch.sim.pipeline import build_graph_from_sim
     from omniswarm_torch.solver.dense import lm_solve_dense
@@ -1736,7 +1912,7 @@ def gold_phase(data, graph) -> list:
     kw = dict(device="cuda", max_iterations=SOLVER_ITERS,
               function_tolerance=0.0)
     fg, finit = build_graph_from_sim(data, enable_detections=True)
-    inits = perturbed_inits(data.vio, 4)
+    inits = batch_inits(data.vio, 4)
     paths = (("dense_100", "lm_solve_dense F=100",
               lambda: lm_solve_dense(graph, data.vio, **kw)),
              ("generic_100", "lm_solve F=100",
@@ -1951,7 +2127,7 @@ def k3_phase():
     return rows
 
 
-def frontend_phase():
+def frontend_phase(prep):
     from omniswarm_torch.frontend_entry import (
         checksum_faults, frontend_entry, keyframe_checksums, summary)
     from omniswarm_torch.ops.frontend_kernels import (
@@ -1959,7 +2135,7 @@ def frontend_phase():
 
     grid_nms.launches = retrieval_top1.launches = 0
     grid_nms_ref.calls = retrieval_top1_ref.calls = 0
-    res = frontend_entry(device="cuda")
+    res = frontend_entry(device="cuda", prep=prep)
     k2, k3 = grid_nms.launches, retrieval_top1.launches
     out = summary(res)
     same = int((res.top1_idx == np.asarray(FE_ANCHORS["top1_idx"])).sum())
@@ -2367,14 +2543,13 @@ def demo_numbers(res: dict, seconds: float, want: dict) -> dict:
     return out
 
 
-def demos_phase() -> dict:
+def demos_phase(prep) -> dict:
     """Phase 9a: the two demos, each run twice (bit-equal) and held to the
     JAX package's CPU anchors in DEMO_ANCHORS (the image demo's views
-    rendered once for both runs), then the detector's card-vs-CPU
-    parity."""
+    ``prep``, the front-end path's render, for both runs), then the
+    detector's card-vs-CPU parity."""
     from omniswarm_torch.demo_entry import (feature_demo_entry,
                                             image_demo_entry)
-    from omniswarm_torch.frontend_entry import prepare
     from omniswarm_torch.ops.frontend_kernels import (
         grid_nms, grid_nms_ref, retrieval_top1, retrieval_top1_ref)
     from omniswarm_torch.solver.fused_level import (
@@ -2413,7 +2588,6 @@ def demos_phase() -> dict:
         for d in res["per_drone"]]
 
     want = DEMO_ANCHORS["image"]
-    prep = prepare()
     runs = []
     for i in range(2):
         grid_nms.launches = retrieval_top1.launches = 0
@@ -3287,6 +3461,206 @@ def tier10_phase(rows) -> dict:
     return out
 
 
+def bf16_parity() -> dict:
+    """Phase 14a (a): the bundled SuperPoint and both NetVLAD encoders in
+    bf16 against f32 (highp) on the card, at tests/test_bf16_frontend.py's
+    bars, on BF16_BATCH render_shapes images at 400 x 208."""
+    import torch
+
+    from omniswarm_torch.core.precision import highp
+    from omniswarm_torch.models.netvlad import pretrained_global_extractor
+    from omniswarm_torch.models.superpoint import (WEIGHTS_DIR,
+                                                   pretrained_extractor)
+    from omniswarm_torch.sim.image_world import render_shapes
+
+    H, W = BF16_HW
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(np.stack([render_shapes(rng, H, W, n_shapes=8)[0]
+                                      for _ in range(BF16_BATCH)]))
+    x = imgs[:, None].cuda()
+    bars, out = BF16_BARS, {}
+    with highp(), torch.no_grad():
+        sp = {dt: pretrained_extractor("cuda", dtype=dt)
+              for dt in (torch.float32, torch.bfloat16)}
+        (h32, d32), (h16, d16) = (sp[dt].net(x) for dt in sp)
+        o32, o16 = (tuple(v.cpu().numpy() for v in sp[dt](x)) for dt in sp)
+        out["heat_max_abs"] = float((h32 - h16).abs().max())
+        out["desc_cos_min"] = float((d32 * d16).sum(-1).min())
+        shares = []
+        for b in range(BF16_BATCH):
+            a, c = o32[0][b][o32[3][b]], o16[0][b][o16[3][b]]
+            check(len(a) > 0 and len(c) > 0,
+                  f"bf16 parity: image {b} has {len(a)} f32 and {len(c)} "
+                  f"bf16 keypoints")
+            d = np.linalg.norm(a[:, None] - c[None], axis=-1)
+            shares.append(float((d.min(axis=1) < bars["kp_px"]).mean()))
+        out["kp_matched_min"] = min(shares)
+        for name in ("netvlad_v2_revisit.npz", "netvlad_synthetic.npz"):
+            g32, g16 = (pretrained_global_extractor(
+                "cuda", path=WEIGHTS_DIR / name, dtype=dt)(x)
+                for dt in (torch.float32, torch.bfloat16))
+            out[name] = dict(
+                cos_min=float((g32 * g16).sum(-1).min()),
+                pairwise_max=float((g32 @ g32.T - g16 @ g16.T).abs().max()))
+    print("bf16 parity", json.dumps(out), flush=True)
+    check(out["heat_max_abs"] < bars["heat"]
+          and out["desc_cos_min"] > bars["desc_cos"]
+          and out["kp_matched_min"] > bars["kp_matched"]
+          and all(out[n]["cos_min"] > bars["global_cos"]
+                  and out[n]["pairwise_max"] < bars["pairwise"]
+                  for n in ("netvlad_v2_revisit.npz",
+                            "netvlad_synthetic.npz")),
+          f"bf16 trunks outside tests/test_bf16_frontend.py's bars: {out}")
+    return out
+
+
+def k2_bench_phase() -> list:
+    """Phase 14a (b): K2 at the bench's front-end shapes, bit-exact against
+    its plain version on random u**8 heat and with NaN cells; CUDA-event
+    times warm and cold (distinct maps over 3x the 50 MB L2), the plain
+    version, the library call and the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from omniswarm_torch import kernels
+    from omniswarm_torch.benchutil import bound, time_cold_ms, time_ms
+    from omniswarm_torch.ops.frontend_kernels import grid_nms_ref
+
+    r, rng, rows = 4, np.random.default_rng(3), []
+    for shape in K2_BENCH_SHAPES:
+        for kind in ("nan", "random"):
+            heat = k2_heat(rng, shape, kind)
+            got, ref = kernels.grid_nms(heat, r), grid_nms_ref(heat, r)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"K2 disagrees at {shape} {kind}: "
+                  f"{int((got != ref).sum())} cells")
+        b_ms, by = bound(2 * heat.numel() * 4, heat.numel() * (4 * r + 1))
+        cold = [torch.roll(heat, k, 0) for k in range(
+            max(10, math.ceil(150e6 / (heat.numel() * 4))))]
+        row = dict(
+            input="random_u8_bench", shape=list(shape), kept=int(
+                (got > 0).sum()), max_abs_err=0.0,
+            ms=time_ms(lambda: kernels.grid_nms(heat, r)),
+            cold_ms=time_cold_ms(lambda h: kernels.grid_nms(h, r), cold),
+            plain_ms=time_ms(lambda: grid_nms_ref(heat, r)),
+            library_ms=time_ms(lambda: torch.where(
+                heat >= F.max_pool2d(heat[:, None], 2 * r + 1, 1, r)[:, 0],
+                heat, 0.0)),
+            bound_ms=b_ms, bound_by=by)
+        del cold
+        print("kernel grid_nms", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def bench_phase() -> dict:
+    """Phase 14a (c): the CPU baseline (CPU_BASELINE_REPS repetition,
+    warm_up=False), then
+    python -m omniswarm_torch.bench's run at its own sizes with BENCH_REPS,
+    printed as one "bench" line: every key of BENCH_r05.json's parsed, no
+    *_error key, kf1024_fused_cost_delta within the 2e-3 bar, K1 and K2
+    launched in the rows that run them, no plain version; each K1 (m, t)
+    the kernel phase did not check is checked after the run, and K2 ran
+    only at K2_BENCH_SHAPES."""
+    from omniswarm_torch import bench, cpu_baseline
+    from omniswarm_torch.ops.frontend_kernels import (grid_nms, grid_nms_ref,
+                                                      retrieval_top1)
+    from omniswarm_torch.solver.fused_level import fused_reduction_level_ref
+
+    t0 = time.perf_counter()
+    base = cpu_baseline.measure(reps=CPU_BASELINE_REPS, warm_up=False)
+    base_path = f"{WORK_DIR}/baseline_cpu.json"
+    os.makedirs(WORK_DIR, exist_ok=True)
+    with open(base_path, "w") as f:
+        json.dump(base, f)
+    print("cpu baseline", json.dumps(base), flush=True)
+    base_s = time.perf_counter() - t0
+    with k1_recording() as levels, k2_recording() as shapes:
+        line = bench.run("cuda", base_path,
+                         sizes=bench.Sizes(**BENCH_REPS))
+    print("bench", json.dumps(line), flush=True)
+    with open("BENCH_r05.json") as f:
+        want = set(json.load(f)["parsed"])
+    launches = line["kernel_launches"]
+    check(want <= set(line), f"bench lacks {sorted(want - set(line))}")
+    check(not [k for k in line if k.endswith("_error")], "bench *_error key")
+    check(line["kf1024_fused_cost_delta"] <= bench.FUSED_COST_BAR,
+          f"kf1024 fused vs unfused {line['kf1024_fused_cost_delta']}")
+    check(fused_reduction_level_ref.calls == 0 and grid_nms_ref.calls == 0,
+          "a plain kernel version ran in the bench")
+    check(all(launches[r]["k1"] > 0 for r in ("headline", "kf1024",
+                                               "dense_loops", "efficiency"))
+          and launches["frontend"]["k2"] > 0
+          and launches["frontend"]["k2"] == grid_nms.launches,
+          f"bench launches {launches}")
+    check(set(shapes) <= set(K2_BENCH_SHAPES),
+          f"K2 ran at {dict(shapes)}, not only at {K2_BENCH_SHAPES}")
+    k3 = retrieval_top1.launches
+    check(k3 == 0, f"K3 launched {k3} times in the bench")
+    k1_checked = estimator_checks_k1(levels)
+    return dict(line=line, launches=launches, k3_launches=k3,
+                k1_checked=k1_checked,
+                k1_levels=[[m, t, n] for (m, t), n in sorted(levels.items())],
+                k2_shapes=[[*k, n] for k, n in sorted(shapes.items())],
+                baseline=base, baseline_s=base_s,
+                seconds=time.perf_counter() - t0)
+
+
+def online_phase() -> dict:
+    """Phase 14a (d): python -m omniswarm_torch.online_window's session at
+    1,024 keyframes and 2,000 loops with ONLINE_SOLVES live solves (the
+    fast build, never a fallback), each anchored solve held to
+    ONLINE_ANCHORS by online_window.held_to; K1 launched, its new level
+    shapes checked against the plain version after the run."""
+    from omniswarm_torch import online_window
+    from omniswarm_torch.ops.frontend_kernels import retrieval_top1
+    from omniswarm_torch.solver.fused_level import (
+        fused_reduction_level, fused_reduction_level_ref)
+
+    t0 = time.perf_counter()
+    with k1_recording() as levels, k2_recording() as k2_shapes:
+        out = online_window.session("cuda", ONLINE_ANCHORS["frames"],
+                                    ONLINE_ANCHORS["loops"], ONLINE_SOLVES)
+    launches = fused_reduction_level.launches
+    check(fused_reduction_level_ref.calls == 0,
+          "the plain level ran on the online window")
+    out["k2_launches"] = sum(k2_shapes.values())
+    out["k3_launches"] = retrieval_top1.launches
+    check(out["k2_launches"] == out["k3_launches"] == 0,
+          "K2 or K3 launched on the online window")
+    faults = []
+    for k, (got, want) in enumerate(zip(out["solves"],
+                                        ONLINE_ANCHORS["solves"])):
+        print(f"online solve {k}: iterations {got['iterations']} (anchor "
+              f"{want['iterations']}) cost {got['cost']!r} (anchor "
+              f"{want['cost']!r}) total {got['total_ms']:.1f} ms", flush=True)
+        faults += [(k, f) for f in online_window.held_to(got, want)]
+    check(not faults, f"online window off its anchors: {faults}")
+    check(launches > 0, "K1 never launched on the online window")
+    out["k1_launches"] = launches
+    out["k1_levels"] = [[m, t, n] for (m, t), n in sorted(levels.items())]
+    out["k1_checked"] = estimator_checks_k1(levels)
+    out["anchored"] = min(len(out["solves"]), len(ONLINE_ANCHORS["solves"]))
+    out["seconds"] = time.perf_counter() - t0
+    print("online window", json.dumps(out), flush=True)
+    return out
+
+
+def measurement_phase() -> dict:
+    """Phase 14a: (a) bf16 parity, (b) K2 at the bench's shapes, (c) the
+    CPU baseline and the bench, (d) the online window."""
+    t0 = time.perf_counter()
+    out = dict(bf16=bf16_parity(), k2_rows=k2_bench_phase())
+    out["bench"] = bench_phase()
+    out["online"] = online_phase()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"measurement phase {out['seconds']:.1f} s (CPU baseline "
+          f"{out['bench']['baseline_s']:.1f} s, bench "
+          f"{out['bench']['seconds'] - out['bench']['baseline_s']:.1f} s, "
+          f"online window {out['online']['seconds']:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
     try:
@@ -3343,14 +3717,17 @@ def main() -> int:
     k2_rows, k2_checked = k2_phase()
     k3_rows = k3_phase()
     print(f"K2/K3 phases {time.perf_counter() - t0:.1f} s", flush=True)
+    from omniswarm_torch.frontend_entry import prepare
+
     t0 = time.perf_counter()
-    fe = frontend_phase()
+    prep = prepare()              # the front-end path's and 9a's views
+    fe = frontend_phase(prep)
     print(f"front-end path phase {time.perf_counter() - t0:.1f} s",
           flush=True)
     est = estimator_phase()
     print(f"estimator path phase {est['seconds']:.1f} s", flush=True)
     t0 = time.perf_counter()
-    demos = demos_phase()
+    demos = demos_phase(prep)
     print(f"demos phase {time.perf_counter() - t0:.1f} s", flush=True)
     layouts = layouts_phase()
     print(f"layouts phase {layouts['seconds']:.1f} s: K1/K2/K3 launches "
@@ -3372,6 +3749,7 @@ def main() -> int:
     k1_per_iteration.update(tier10["k1_per_iteration"])
     print(f"tier-10 phase {time.perf_counter() - t0:.1f} s (solves "
           f"{tier10['solve_seconds']:.1f} s)", flush=True)
+    measured = measurement_phase()
 
     main = next(r for r in rows
                 if (r["m"], r["t"], r["branch"]) == (40, 32, "warm"))
@@ -3386,7 +3764,9 @@ def main() -> int:
         "launches": paths[100]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + k1_checked
                            + est["k1_checked"]
-                           + node["paced"]["k1_checked"]),
+                           + node["paced"]["k1_checked"]
+                           + measured["bench"]["k1_checked"]
+                           + measured["online"]["k1_checked"]),
         "ms": main["ms"],
         "kernel_ms": main["ms"],
         "wrapper_ms": main["wrapper_ms"],
@@ -3405,9 +3785,15 @@ def main() -> int:
         "launches_dense_loops": {k: v["launches"]
                                  for k, v in tier10["dense"].items()},
         "launches_demo_d10": tier10["demo"]["launches"]["k1"],
+        "launches_bench": {k: v["k1"] for k, v in
+                           measured["bench"]["launches"].items()},
+        "launches_online_window": measured["online"]["k1_launches"],
+        "levels_bench": measured["bench"]["k1_levels"],
+        "levels_online_window": measured["online"]["k1_levels"],
         "shapes": rows,
         "checked": k1_checked + est["k1_checked"]
-        + node["paced"]["k1_checked"],
+        + node["paced"]["k1_checked"] + measured["bench"]["k1_checked"]
+        + measured["online"]["k1_checked"],
         "per_iteration": k1_per_iteration,
         "main_paths": list(paths.values()),
     }, {
@@ -3420,15 +3806,19 @@ def main() -> int:
         "launches_node": node["k2_launches"],
         "launches_train": train["launches"]["k2"],
         "launches_demo_d10": tier10["demo"]["launches"]["k2"],
+        "launches_bench": {k: v["k2"] for k, v in
+                           measured["bench"]["launches"].items()},
+        "shapes_bench": measured["bench"]["k2_shapes"],
+        "launches_online_window": measured["online"]["k2_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows
-                           + train["k2_checked"]),
+                           + train["k2_checked"] + measured["k2_rows"]),
         "ms": k2_main["ms"],
         "cold_ms": k2_main["cold_ms"],
         "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"],
         "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"],
-        "shapes": k2_rows,
+        "shapes": k2_rows + measured["k2_rows"],
         "checked": k2_checked + train["k2_checked"],
     }, {
         "name": "retrieval_top1",
@@ -3441,6 +3831,8 @@ def main() -> int:
         "launches_node": node["k3_launches"],
         "launches_train": train["launches"]["k3"],
         "launches_demo_d10": tier10["demo"]["launches"]["k3"],
+        "launches_bench": measured["bench"]["k3_launches"],
+        "launches_online_window": measured["online"]["k3_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
         "ms": k3_main["ms"],
         "plain_ms": k3_main["plain_ms"],

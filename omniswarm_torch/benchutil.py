@@ -1,23 +1,45 @@
-"""Timing, bounds and level inputs shared by the port's on-card scripts.
+"""Timing, bounds, counters and level inputs shared by the port's on-card
+scripts.
 
 ``chip_smoke.py`` and ``omniswarm_torch.bench_level`` time kernels with
 ``time_ms`` (inputs warm in L2) and ``time_cold_ms`` (inputs read from
 HBM), state the least time the card could take with ``bound``, and build
-fused-level (K1) inputs with ``random_level``.
+fused-level (K1) inputs with ``random_level``. ``omniswarm_torch.bench``
+(the counterpart of the root ``bench.py``) takes its constants,
+``median_time``, ``pert``, the card's peaks (``card_peaks``) and the
+operation counter ``count_ops`` from here.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import statistics
+import time
+from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import FlopCounterMode
 
 from omniswarm_torch.solver.fused_level import (fused_reduction_level,
                                                 fused_reduction_level_ref)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12        # H100 SXM FP32 outside the tensor cores
+# bench.py:35-37: the reference's Ceres budget (<= 1000 iterations in
+# max_solver_time 0.5 s, loop-5-drone.launch:36-38), the lanes of the
+# multi-init batch and the headline's LM iterations
+BUDGET_ANCHOR_ITER_PER_S = 2000.0
+BATCH = 8
+ITERS = 100
+# Dense peaks (bf16 FLOP/s, device-memory bytes/s) by torch.cuda's card
+# name: the H100 SXM with HBM3 (NVIDIA's data sheet, at 700 W). The
+# efficiency fields of the bench are computed against these alone.
+CARD_PEAKS = {"NVIDIA H100 80GB HBM3": (989.4e12, 3.35e12)}
+ROOT = Path(__file__).resolve().parents[1]
 LEVEL_RTOL = LEVEL_ATOL = 2e-4
 # (F, D, m, level sizes t): the warm levels one LM iteration of a packed
 # solve launches: 5 drones pack 2 at F=100 and 4 at F=1024; 10 drones pack
@@ -66,10 +88,15 @@ def bound(nbytes: float, ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def level_work(m: int, t: int) -> Tuple[int, int]:
+    """(bytes, FLOPs) of one level of t pairs: 13 (m, m) f32 blocks moved
+    and 18 m^3 FLOPs per pair (9 block products)."""
+    return 13 * m * m * 4 * t, 18 * m ** 3 * t
+
+
 def level_bound_ms(m: int, t: int):
-    """Least time for one level: 13 (m, m) f32 blocks moved and 18 m^3
-    FLOPs per pair (9 block products)."""
-    return bound(13 * m * m * 4 * t, 18 * m ** 3 * t)
+    """Least time for one level (``level_work`` on the card)."""
+    return bound(*level_work(m, t))
 
 
 def random_level(rng, Fl: int, m: int, branch: str):
@@ -112,3 +139,136 @@ def check_level(A, B, X0) -> float:
                                f"t={X0.shape[0]}: max |diff| {diff:.3e}")
         err = max(err, diff)
     return err
+
+
+def batch_inits(vio: np.ndarray, lanes: int = BATCH) -> np.ndarray:
+    """bench.py:151-156's multi-init batch: lane 0 the VIO init, lanes 1..
+    N(0, 0.4) added to the positions of every drone but the first, from
+    numpy's default_rng(0)."""
+    rng = np.random.default_rng(0)
+    F, D = vio.shape[:2]
+    inits = np.tile(np.asarray(vio, np.float32)[None], (lanes, 1, 1, 1))
+    for b in range(1, lanes):
+        inits[b, :, 1:, :3] += rng.normal(
+            0, 0.4, size=(F, D - 1, 3)).astype(np.float32)
+    return inits
+
+
+def card_peaks(device) -> Optional[Tuple[float, float]]:
+    """(bf16 FLOP/s, bytes/s) of ``device``'s card, or None (printed with
+    the reason) for a card CARD_PEAKS does not list or the CPU."""
+    dev = torch.device(device)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    peaks = CARD_PEAKS.get(name)
+    if peaks is None:
+        print(f"[bench] no published peaks for {name!r} (CARD_PEAKS lists "
+              f"{sorted(CARD_PEAKS)}): the efficiency fields are left out",
+              flush=True)
+    return peaks
+
+
+def sync(x) -> None:
+    """Wait for the device work behind the tensors in ``x``."""
+    for leaf in tree_leaves(x):
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            torch.cuda.synchronize(leaf.device)
+            return
+
+
+def median_time(fn, reps: int = 5):
+    """(median wall seconds of ``fn(k)`` over k < reps, the last output),
+    each rep ended by a synchronise (bench.py:88-103). ``fn`` makes each
+    rep's inputs content-distinct with ``pert``, as the reference does."""
+    ts, out = [], None
+    for k in range(reps):
+        t0 = time.perf_counter()
+        out = fn(k)
+        sync(out)
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)), out
+
+
+def pert(arr_np, k: int, eps: float = 1e-6) -> np.ndarray:
+    """A copy of ``arr_np`` with its first element nudged by (k + 1) eps
+    plus a draw below eps from numpy's global RNG (bench.py:106-113); the
+    nudge never changes an iteration count."""
+    out = np.array(arr_np, copy=True)
+    out.reshape(-1)[0] += (k + 1) * eps + np.random.uniform(0, eps)
+    return out
+
+
+class _ByteCounter(TorchDispatchMode):
+    """Sums the bytes of every aten op's tensor inputs and outputs; views
+    and allocations move no data and are skipped."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not (func.is_view or func.__name__.startswith("empty")):
+            self.bytes += sum(x.numel() * x.element_size()
+                              for x in tree_leaves((args, kwargs, out))
+                              if isinstance(x, torch.Tensor))
+        return out
+
+
+@contextlib.contextmanager
+def k1_levels():
+    """Records the (m, t) of every K1 kernel launch (``kernels.fused_level``)
+    into the list it yields; launches from the plain version are not
+    kernel launches and are not recorded."""
+    from omniswarm_torch import kernels
+
+    launch, levels = kernels.fused_level, []
+
+    def recording_launch(A, B, X0, guard):
+        levels.append((A.shape[-1], A.shape[0] // 2))
+        return launch(A, B, X0, guard)
+
+    kernels.fused_level = recording_launch
+    try:
+        yield levels
+    finally:
+        kernels.fused_level = launch
+
+
+def count_ops(fn):
+    """(FLOPs, bytes, output) of one call of ``fn()``.
+
+    FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` (matrix products
+    and convolutions: 2 per multiply-add) plus ``level_work``'s FLOPs for
+    each K1 kernel launch. Bytes: each aten op's tensor inputs and outputs
+    (views and allocations skipped) plus ``level_work``'s bytes for each K1
+    launch. Neither counter sees a ``ctypes`` launch, hence K1's own count;
+    K2 and K3, also ``ctypes`` launches, are not counted (neither is on the
+    solver's path; K2's comparisons are no FLOPs). FlopCounterMode also
+    leaves out element-wise ops, reductions, sorts and scatters and the
+    factorizations (Cholesky, triangular solves). On the CPU the plain
+    level runs as aten ops, which the counters see themselves.
+
+    These count the port's eager program, op by op: every intermediate
+    goes through memory. The reference's ``_hlo_cost`` (bench.py:67-86)
+    counts XLA's fused program, whose fusions keep intermediates on chip,
+    so the two are not the same quantity.
+    """
+    bytes_mode = _ByteCounter()
+    flops_mode = FlopCounterMode(display=False)
+    with k1_levels() as levels, flops_mode, bytes_mode:
+        out = fn()
+    sync(out)
+    work = [level_work(m, t) for m, t in levels]
+    return (flops_mode.get_total_flops() + sum(f for _, f in work),
+            bytes_mode.bytes + sum(b for b, _ in work), out)
+
+
+def refuse_reference_output(ap, path, patterns) -> None:
+    """``ap.error`` (exit 2) when ``path`` is one of the repository's
+    pre-port artifacts (a name matching one of ``patterns`` at its root) or
+    lies inside one: an ``--out`` never overwrites them."""
+    p = Path(path).resolve()
+    if any(q.parent == ROOT and q.match(pattern)
+           for q in (p, *p.parents) for pattern in patterns):
+        ap.error(f"--out {path}: a reference artifact of the repository; "
+                 f"write elsewhere")

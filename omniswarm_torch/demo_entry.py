@@ -420,7 +420,6 @@ def summary(res: dict) -> dict:
 # Files of the repository that predate the port (the reference's demo
 # artifacts): --out never writes them.
 REFERENCE_OUTPUTS = ("IMAGE_DEMO*.json", "demo_out")
-ROOT = Path(__file__).resolve().parents[1]
 
 
 def parser() -> argparse.ArgumentParser:
@@ -456,22 +455,15 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def reference_output(path) -> bool:
-    """Whether ``path`` is one of the repository's pre-port demo artifacts
-    (``REFERENCE_OUTPUTS`` at its root) or lies inside one."""
-    p = Path(path).resolve()
-    return any(q.parent == ROOT and q.match(pattern)
-               for q in (p, *p.parents) for pattern in REFERENCE_OUTPUTS)
-
-
 def main(argv=None) -> dict:
     """Run one demo from the command line; returns its metrics (the JSON
     line, without estimates)."""
     ap = parser()
     args = ap.parse_args(argv)
-    if args.out is not None and reference_output(args.out):
-        ap.error(f"--out {args.out}: a reference artifact of the repository;"
-                 f" write elsewhere")
+    if args.out is not None:
+        from omniswarm_torch.benchutil import refuse_reference_output
+
+        refuse_reference_output(ap, args.out, REFERENCE_OUTPUTS)
     if args.demo == "feature":
         res = summary(feature_demo_entry(
             args.device, report_dir=args.out, drones=args.drones,

@@ -244,10 +244,13 @@ def run_steps(cam: OmniLoopCam, fp: FrontendParams, steps):
 
 def frontend_entry(device="cuda", num_drones: int = 5, num_frames: int = 30,
                    kf_every: int = 2, seed: int = 7, height: int = 208,
-                   width: int = 400) -> FrontendResult:
-    """Run steps 1-5 of the front-end path and return the scored result."""
+                   width: int = 400, prep=None) -> FrontendResult:
+    """Run steps 1-5 of the front-end path and return the scored result.
+    ``prep``: steps 1-2, ``prepare`` at the same arguments (rendered here
+    if None)."""
     dev = resolve_device(device)
-    prep = prepare(num_drones, num_frames, kf_every, seed, height, width)
+    if prep is None:
+        prep = prepare(num_drones, num_frames, kf_every, seed, height, width)
     cam = OmniLoopCam(params=prep.fp, intrinsics=prep.intr,
                       baseline=BASELINE, device=dev)
     k2_0, k3_0 = grid_nms.launches, retrieval_top1.launches

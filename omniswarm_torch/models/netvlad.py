@@ -17,6 +17,12 @@ Where the reference differs from PyTorch's defaults:
 - Flax's GroupNorm epsilon is 1e-6 (PyTorch's default is 1e-5).
 - Normalisations divide by ``max(norm, 1e-8)``.
 
+``dtype=torch.bfloat16`` runs the encoder as the reference's ``dtype``
+does: the image and each conv's f32 weight and bias are rounded to bf16 at
+every call and the convs and ReLUs run in bf16; each GroupNorm runs in f32
+and its ReLU's output is cast back to bf16 (the reference's :62-69,
+:86-88); NetVLAD pools in f32 (:113). The weights stay f32.
+
 For training (``models/train_netvlad.py``): ``init_mobilenetvlad`` draws
 Flax's default initialisation and ``save_netvlad_npz`` writes the
 reference's checkpoint layout.
@@ -31,8 +37,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from omniswarm_torch.core.device import resolve_device
-from omniswarm_torch.models.superpoint import (WEIGHTS_DIR, _unit,
-                                               lecun_normal_)
+from omniswarm_torch.models.superpoint import (WEIGHTS_DIR, CastConv2d,
+                                               _unit, lecun_normal_)
 
 DEFAULT_WEIGHTS = WEIGHTS_DIR / "netvlad_v2_revisit.npz"
 # bundled checkpoint architecture: K*C = 8*512 = 4096 = out_dim, no proj
@@ -48,8 +54,9 @@ def _same_pad(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
-class SameConv2d(nn.Conv2d):
-    """Conv2d with Flax/XLA ``padding="SAME"`` (asymmetric at stride 2)."""
+class SameConv2d(CastConv2d):
+    """Conv2d with Flax/XLA ``padding="SAME"`` (asymmetric at stride 2), in
+    the dtype of its input."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size[0], self.stride[0]
@@ -63,83 +70,93 @@ class SameConv2d(nn.Conv2d):
 def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
           bias: bool = True) -> nn.Conv2d:
     if k == 1:
-        return nn.Conv2d(cin, cout, 1, bias=bias)
+        return CastConv2d(cin, cout, 1, bias=bias)
     return SameConv2d(cin, cout, k, stride=stride, groups=groups, bias=bias)
 
 
 class SeparableConv(nn.Module):
-    """v1 block: depthwise 3x3 (stride s) + ReLU, pointwise 1x1 + ReLU."""
+    """v1 block: depthwise 3x3 (stride s) + ReLU, pointwise 1x1 + ReLU, in
+    ``dtype``."""
 
-    def __init__(self, cin: int, features: int, stride: int = 1):
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.dw = _conv(cin, cin, 3, stride, groups=cin)
         self.pw = _conv(cin, features, 1)
 
     def forward(self, x):
-        return F.relu(self.pw(F.relu(self.dw(x))))
+        return F.relu(self.pw(F.relu(self.dw(x.to(self.dtype)))))
 
 
 class MobileNetEncoder(nn.Module):
-    """v1 encoder: (B, 1, H, W) -> (B, 512, H/16, W/16)."""
+    """v1 encoder: (B, 1, H, W) -> (B, 512, H/16, W/16) in ``dtype``."""
 
     BLOCKS = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2))
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.stem = _conv(1, 32, 3, 2)
         cin = 32
         for i, (c, s) in enumerate(self.BLOCKS):
-            self.add_module(f"sep{i}", SeparableConv(cin, c, s))
+            self.add_module(f"sep{i}", SeparableConv(cin, c, s, dtype))
             cin = c
 
     def forward(self, x):
-        x = F.relu(self.stem(x))
+        x = F.relu(self.stem(x.to(self.dtype)))
         for i in range(len(self.BLOCKS)):
             x = getattr(self, f"sep{i}")(x)
         return x
 
 
 class SeparableConvGN(nn.Module):
-    """v2 block: depthwise/pointwise convs (no bias) with GroupNorm + ReLU."""
+    """v2 block: depthwise/pointwise convs (no bias) in ``dtype``, each with
+    GroupNorm in f32 + ReLU, cast back to ``dtype``."""
 
-    def __init__(self, cin: int, features: int, stride: int = 1):
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.dw = _conv(cin, cin, 3, stride, groups=cin, bias=False)
         self.dw_gn = nn.GroupNorm(min(32, cin), cin, eps=GN_EPS)
         self.pw = _conv(cin, features, 1, bias=False)
         self.pw_gn = nn.GroupNorm(min(32, features), features, eps=GN_EPS)
 
     def forward(self, x):
-        x = F.relu(self.dw_gn(self.dw(x)))
-        return F.relu(self.pw_gn(self.pw(x)))
+        x = F.relu(self.dw_gn(self.dw(x.to(self.dtype)).float()))
+        x = F.relu(self.pw_gn(self.pw(x.to(self.dtype)).float()))
+        return x.to(self.dtype)
 
 
 class MobileNetEncoderV2(nn.Module):
     """v2 encoder (GroupNorm, one block deeper): (B, 1, H, W) ->
-    (B, 512, H/16, W/16)."""
+    (B, 512, H/16, W/16) in ``dtype``."""
 
     BLOCKS = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2),
               (512, 1))
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.stem = _conv(1, 32, 3, 2, bias=False)
         self.stem_gn = nn.GroupNorm(8, 32, eps=GN_EPS)
         cin = 32
         for i, (c, s) in enumerate(self.BLOCKS):
-            self.add_module(f"sep{i}", SeparableConvGN(cin, c, s))
+            self.add_module(f"sep{i}", SeparableConvGN(cin, c, s, dtype))
             cin = c
 
     def forward(self, x):
-        x = F.relu(self.stem_gn(self.stem(x)))
+        x = F.relu(self.stem_gn(self.stem(x.to(self.dtype)).float()))
+        x = x.to(self.dtype)
         for i in range(len(self.BLOCKS)):
             x = getattr(self, f"sep{i}")(x)
         return x
 
 
 class NetVLAD(nn.Module):
-    """NetVLAD pooling: (B, C, H, W) -> (B, K*C) (K-major), then the
-    optional projection to ``out_dim``; unit vectors."""
+    """NetVLAD pooling in f32: (B, C, H, W) -> (B, K*C) (K-major), then
+    the optional projection to ``out_dim``; unit vectors."""
 
     def __init__(self, num_clusters: int = 64, dim: int = 512,
                  out_dim: int = 4096, use_proj: bool = True):
@@ -151,7 +168,7 @@ class NetVLAD(nn.Module):
 
     def forward(self, x):
         B, C = x.shape[:2]
-        feats = x.reshape(B, C, -1).transpose(1, 2)          # (B, N, C)
+        feats = x.reshape(B, C, -1).transpose(1, 2).float()  # (B, N, C)
         assign = torch.softmax(self.assign(feats), dim=-1)   # (B, N, K)
         agg = assign.transpose(1, 2) @ feats                 # (B, K, C)
         mass = assign.sum(dim=1)                             # (B, K)
@@ -164,13 +181,15 @@ class NetVLAD(nn.Module):
 
 
 class MobileNetVLAD(nn.Module):
-    """images (B, 1, H, W) grayscale in [0, 1] -> (B, out_dim) unit."""
+    """images (B, 1, H, W) grayscale in [0, 1] -> (B, out_dim) unit, f32;
+    the encoder runs in ``dtype``."""
 
     def __init__(self, num_clusters: int = 64, out_dim: int = 4096,
-                 use_proj: bool = True, encoder_version: int = 1):
+                 use_proj: bool = True, encoder_version: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.encoder = (MobileNetEncoderV2() if encoder_version >= 2
-                        else MobileNetEncoder())
+        self.encoder = (MobileNetEncoderV2(dtype) if encoder_version >= 2
+                        else MobileNetEncoder(dtype))
         self.vlad = NetVLAD(num_clusters, 512, out_dim, use_proj)
 
     def forward(self, images):
@@ -179,14 +198,16 @@ class MobileNetVLAD(nn.Module):
 
 class GlobalDescriptorExtractor(nn.Module):
     """MobileNetVLAD with loaded weights: call with (B, 1, H, W) images in
-    [0, 1], get (B, out_dim) unit descriptors."""
+    [0, 1], get (B, out_dim) unit descriptors (f32; the encoder in
+    ``dtype``)."""
 
     def __init__(self, state_dict: Dict[str, torch.Tensor], *,
                  num_clusters: int = 64, out_dim: int = 4096,
-                 use_proj: bool = True, encoder_version: int = 1):
+                 use_proj: bool = True, encoder_version: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.model = MobileNetVLAD(num_clusters, out_dim, use_proj,
-                                   encoder_version)
+                                   encoder_version, dtype)
         self.load_state_dict(state_dict)
 
     @torch.no_grad()
@@ -195,14 +216,16 @@ class GlobalDescriptorExtractor(nn.Module):
 
 
 def init_mobilenetvlad(generator: torch.Generator,
-                       encoder_version: int = 1) -> MobileNetVLAD:
-    """A MobileNetVLAD of the bundled architecture (on the CPU) with Flax's
-    default initialisation drawn from ``generator``:
+                       encoder_version: int = 1, *,
+                       num_clusters: int = BUNDLED_CLUSTERS,
+                       out_dim: int = BUNDLED_OUT_DIM,
+                       use_proj: bool = False) -> MobileNetVLAD:
+    """A MobileNetVLAD (on the CPU; by default of the bundled architecture)
+    with Flax's default initialisation drawn from ``generator``:
     ``lecun_normal`` conv and Dense kernels (a depthwise kernel's fan_in is
     9), zero biases, GroupNorm scale 1 and bias 0, and centroids drawn
     from N(0, 0.1^2) (``netvlad.py:116-118`` of the reference)."""
-    model = MobileNetVLAD(BUNDLED_CLUSTERS, BUNDLED_OUT_DIM, False,
-                          encoder_version)
+    model = MobileNetVLAD(num_clusters, out_dim, use_proj, encoder_version)
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             lecun_normal_(mod.weight, generator)
@@ -255,9 +278,11 @@ def netvlad_meta(path) -> Dict[str, int]:
 
 
 def pretrained_global_extractor(device="cuda", *, path=DEFAULT_WEIGHTS,
+                                dtype: torch.dtype = torch.float32,
                                 **kw) -> GlobalDescriptorExtractor:
     """GlobalDescriptorExtractor with the bundled checkpoint, on
-    ``device`` (the GPU unless the CPU is asked for)."""
+    ``device`` (the GPU unless the CPU is asked for), its encoder in
+    ``dtype`` (f32 weights either way)."""
     from omniswarm_torch.convert import netvlad_params_from_flax
 
     dev = resolve_device(device)
@@ -266,4 +291,4 @@ def pretrained_global_extractor(device="cuda", *, path=DEFAULT_WEIGHTS,
     kw.setdefault("use_proj", False)
     kw.setdefault("encoder_version", netvlad_meta(path)["encoder_version"])
     sd = netvlad_params_from_flax(load_netvlad_npz(path))
-    return GlobalDescriptorExtractor(sd, **kw).to(dev).eval()
+    return GlobalDescriptorExtractor(sd, dtype=dtype, **kw).to(dev).eval()

@@ -12,6 +12,13 @@ the PCA 256 -> 64. Weights come from the reference's bundled Flax checkpoint
 Every 3x3 convolution here has stride 1, where Flax's ``padding="SAME"``
 is the symmetric ``padding=1``.
 
+``dtype=torch.bfloat16`` runs the trunk as the reference's ``dtype`` does
+(Flax's ``promote_dtype``): the image and each conv's f32 weight and bias
+are rounded to bf16 (to nearest even) at every call, every conv, ReLU and
+pool runs in bf16, and the detector logits and the descriptor head are cast
+back to f32 (the reference's :62 and :69), so the heat map that reaches
+K2 is f32. The weights stay f32 in the module.
+
 For training (``models/train_superpoint.py``): ``forward(return_logits=True)``
 adds the raw detector logits, ``init_superpoint`` draws Flax's default
 initialisation, and ``save_flax_npz`` / ``load_params_npz`` write the
@@ -53,21 +60,32 @@ def _unit(x: torch.Tensor, dim: int) -> torch.Tensor:
                                                         keepdim=True), 1e-8)
 
 
+class CastConv2d(nn.Conv2d):
+    """Conv2d in the dtype of its input: the f32 weight and bias are rounded
+    to the input's dtype at each call (a no-op for f32 inputs)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 class SuperPoint(nn.Module):
     """images (B, 1, H, W) in [0, 1] -> (heat (B, H, W),
-    desc (B, H/8, W/8, 256)); the descriptor map is returned channels-last,
-    the reference's layout, as a view."""
+    desc (B, H/8, W/8, 256)), both f32 for either ``dtype`` (the trunk's);
+    the descriptor map is returned channels-last, the reference's layout,
+    as a view."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         for name, cin, cout, k in _CONVS:
-            self.add_module(name, nn.Conv2d(cin, cout, k, padding=k // 2))
+            self.add_module(name, CastConv2d(cin, cout, k, padding=k // 2))
 
     def forward(self, images: torch.Tensor, return_logits: bool = False):
         """(heat, desc) or, with ``return_logits``, (heat, desc, logits)
         where logits (B, H/8, W/8, 65) are the raw detector logits,
         channels-last as the reference returns them (a view)."""
-        x = images
+        x = images.to(self.dtype)
         for a, b in (("conv1a", "conv1b"), ("conv2a", "conv2b"),
                      ("conv3a", "conv3b")):
             x = F.relu(getattr(self, a)(x))
@@ -76,14 +94,14 @@ class SuperPoint(nn.Module):
         x = F.relu(self.conv4a(x))
         x = F.relu(self.conv4b(x))
 
-        logits = self.convPb(F.relu(self.convPa(x)))          # (B, 65, Hc, Wc)
+        logits = self.convPb(F.relu(self.convPa(x))).float()  # (B, 65, Hc, Wc)
         semi = torch.softmax(logits, dim=1)[:, :64]
         B, _, Hc, Wc = semi.shape
         # depth-to-space: channel i*8 + j -> pixel (8 hc + i, 8 wc + j)
         heat = semi.reshape(B, 8, 8, Hc, Wc).permute(0, 3, 1, 4, 2)
         heat = heat.reshape(B, Hc * 8, Wc * 8)
 
-        desc = self.convDb(F.relu(self.convDa(x)))
+        desc = self.convDb(F.relu(self.convDa(x))).float()
         desc = _unit(desc, dim=1).permute(0, 2, 3, 1)
         if return_logits:
             return heat, desc, logits.permute(0, 2, 3, 1)
@@ -135,13 +153,15 @@ class SuperPointExtractor(nn.Module):
 
     Call with (B, 1, H, W) images in [0, 1]; returns (xy (B, K, 2) f32,
     scores (B, K), desc (B, K, pca_dim) unit, valid (B, K) bool).
+    ``dtype``: the CNN trunk's (``SuperPoint``); the post-processing is f32.
     """
 
     def __init__(self, state_dict: Dict[str, torch.Tensor], *,
                  max_keypoints: int = 200, threshold: float = 0.012,
-                 nms_dist: int = 4, pca_dim: int = 64):
+                 nms_dist: int = 4, pca_dim: int = 64,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.net = SuperPoint()
+        self.net = SuperPoint(dtype)
         self.max_keypoints = max_keypoints
         self.threshold = threshold
         self.nms_dist = nms_dist
@@ -208,13 +228,16 @@ def load_params_npz(path) -> Dict[str, torch.Tensor]:
 
 
 def pretrained_extractor(device="cuda", *, path=DEFAULT_WEIGHTS,
+                         dtype: torch.dtype = torch.float32,
                          **kw) -> SuperPointExtractor:
     """SuperPointExtractor with the bundled photometric checkpoint (with
-    its fitted PCA), on ``device`` (the GPU unless the CPU is asked for)."""
+    its fitted PCA), on ``device`` (the GPU unless the CPU is asked for),
+    its trunk in ``dtype`` (f32 weights either way)."""
     from omniswarm_torch.convert import superpoint_params_from_flax
 
     dev = resolve_device(device)
     flat = load_flax_npz(path)
     kw.setdefault("pca_dim", flat["pca_components"].shape[0])
-    ext = SuperPointExtractor(superpoint_params_from_flax(flat), **kw)
+    ext = SuperPointExtractor(superpoint_params_from_flax(flat), dtype=dtype,
+                              **kw)
     return ext.to(dev).eval()

@@ -75,7 +75,11 @@ def test_port_files_exist():
                  "omniswarm_torch/utils/diagnostics.py",
                  "omniswarm_torch/models/train_superpoint.py",
                  "omniswarm_torch/models/train_netvlad.py",
-                 "omniswarm_torch/train_entry.py"):
+                 "omniswarm_torch/train_entry.py",
+                 "omniswarm_torch/bench.py",
+                 "omniswarm_torch/bench_frontend.py",
+                 "omniswarm_torch/online_window.py",
+                 "omniswarm_torch/cpu_baseline.py"):
         assert want in names
     for cu in ("fused_level", "grid_nms", "retrieval_top1"):
         assert (ROOT / f"omniswarm_torch/csrc/{cu}.cu").exists()
@@ -229,6 +233,20 @@ def test_train_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: tnv.retrieval_metrics({}),
                  lambda: train_entry.superpoint_main(["--out", out]),
                  lambda: train_entry.netvlad_main(["--out", out])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_measurement_entry_points_raise_without_cuda(monkeypatch):
+    from omniswarm_torch import bench, bench_frontend, online_window
+    from omniswarm_torch.models.netvlad import pretrained_global_extractor
+    from omniswarm_torch.models.superpoint import pretrained_extractor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: bench.main([]), lambda: bench_frontend.main([]),
+                 lambda: online_window.main(["--frames", "8"]),
+                 lambda: pretrained_extractor(dtype=torch.bfloat16),
+                 lambda: pretrained_global_extractor(dtype=torch.bfloat16)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
