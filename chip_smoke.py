@@ -12,15 +12,17 @@ non-zero without printing a result.
 2. K1 phase: the fused cyclic-reduction level kernel against its plain
    PyTorch version on the card (rtol = atol = 2e-4 on all 7 outputs) at
    every level shape the solves launch (m=40 with t=32, 16, 8, 4 at F=100;
-   m=80 with t=128, 64, 32, 16, 8, 4 at F=1024, and t=256 at 10 x 1024)
-   and at odd widths and single pairs, each on the warm, guard-fallback and
-   NaN-start branches. Timed: the warm branch at every level shape, the
-   fallback branch at (40, 32), (80, 128), (80, 4) and (80, 256) and the
-   NaN start at (80, 4) and (80, 256). Each timed row gives the CTAs per
-   pair (cluster size), the kernel's CUDA-event median and the least time
-   the card could take (bytes over 3.35 TB/s, FLOPs over 67 TFLOP/s FP32);
-   the warm and fallback rows at (40, 32) and (80, 128) and the warm row at
-   (80, 256) also time the wrapper and the plain version.
+   m=80 with t=128, 64, 32, 16, 8, 4 at F=1024, t=256 at 10 x 1024 and
+   t = F/8 ... 4 on phase 15a's sweep: 512, 1,024 and 2,048 at F=4,096 ...
+   16,384) and at odd widths and single pairs, each on the warm,
+   guard-fallback and NaN-start branches. Timed: the warm branch at every
+   level shape, the fallback branch at (40, 32), (80, 128), (80, 4) and
+   (80, 256) and the NaN start at (80, 4) and (80, 256). Each timed row
+   gives the CTAs per pair (cluster size), the kernel's CUDA-event median
+   and the least time the card could take (bytes over 3.35 TB/s, FLOPs
+   over 67 TFLOP/s FP32); the warm and fallback rows at (40, 32) and (80,
+   128) and the warm rows at (80, 256), (80, 512), (80, 1,024) and (80,
+   2,048) also time the wrapper and the plain version.
 3. Main path: omniswarm_torch.entry.entry() at F=100, D=5, seed 0,
    20 LM iterations. Checks a finite cost below the initial one, within 1%
    of the reference's 177.25, relative ATE < 0.08, 4 kernel launches per
@@ -209,15 +211,20 @@ non-zero without printing a result.
    iterations: the Woodbury path at pack 1, no K1) and at 10 x 1024 (seed
    0, 20 iterations: PCG by the "auto" rule at pack 2, K1 once an iteration
    at each of (80, 256), (80, 128) ... (80, 4), the level shapes recorded in
-   the run). (b) The loop-dense window (5 x 1024, seed 4, loop_every=2:
-   2,555 loops, 25 iterations) on PCG at 24, 16, 12 and 8 CG sweeps (K1 at
-   the F=1024 shapes above) and on the exact path (no K1). Each solve runs
-   twice (bit-equal cost and poses) and is held to its anchor: cost within
-   1%, the anchor's iteration count, cost below the initial one, relative
-   ATE below raw VIO's (and below the reference test's 0.15 at 10 x 100);
-   its ms per LM iteration and K1's launches and kernel ms per iteration
-   are printed. (c) The 10 x 30 image demo (150 keyframes, 80 views a
-   keyframe step) through the command line's own function,
+   the run). Each runs twice (bit-equal cost and poses) and is held to its
+   anchor: cost within 1%, the anchor's iteration count, cost below the
+   initial one, relative ATE below raw VIO's (and below the reference
+   test's 0.15 at 10 x 100). (b) The loop-dense window (5 x 1024, seed 4,
+   loop_every=2: 2,555 loops, 25 iterations) through the command line's
+   own function, omniswarm_torch.tools.bench_dense_loops.measure (exact=True,
+   one timed solve a run, each repeated): PCG at 24, 16, 12 and 8 CG
+   sweeps (K1 at the F=1024 shapes above), the Woodbury path
+   (linear="smw", K1 too; no anchor: held to a cost decrease) and the
+   exact path (no K1), each repeat bit-equal, the PCG and exact runs held
+   to their anchors as in (a). Each solve's ms per LM iteration and K1's
+   launches and kernel ms per iteration are printed. (c) The 10 x 30 image
+   demo (150 keyframes, 80 views a keyframe step) through the command
+   line's own function,
    demo_entry.main(["image", "--drones", "10", "--frames", "30", "--out",
    ...]), run once, held to DEMO_ANCHORS["image_d10"] at phase 9a's image
    bars, every one of the ten drones solved, K2 launched once a keyframe
@@ -255,6 +262,29 @@ non-zero without printing a result.
    rounding decides whether a warm solve converges or stalls, so the
    count is printed beside its anchor's); K1 launched (new level shapes
    checked after the run), K2 and K3 never. One "online window" line.
+15a. The repository's remaining tools (omniswarm_torch/tools/), after 14a.
+   (a) tools.window_scale_sweep's row at F = 1,024, 2,048, 4,096, 8,192
+   and 16,384 (5 drones, seed 1, loop_every=128, 25 iterations, one timed
+   solve a size; Woodbury up to 4,096, PCG above; K1 at t = F/8 ... 4, its
+   shapes recorded and checked against SOLVE_LEVELS, no plain level): each
+   F within 1% of its JAX-CPU cost in SWEEP_ANCHORS
+   (tools/solver_anchors.py --only window_scale) with the anchor's loops,
+   iterations and linear path; F=16,384 solved twice (bit-equal); at every
+   F a cost below the initial one and relative ATE below raw VIO's; K1's
+   kernel ms per iteration from the kernel phase's rows. (b)
+   tools.replay_eval on CSV logs written from the simulator (3 drones, 30
+   s) held to REPLAY_ANCHOR (the reference's tools/replay_eval.py on the
+   CPU; both with max_solver_time 1e-6 s): the same solves over the same
+   windows and iterations, each cost within 1%, each summary.json value
+   within 1e-3 m (rad). (c)
+   tools.eval_superpoint_textured on the three bundled SuperPoint
+   checkpoints (24 pairs, highp): K2 at (1, 64, 96) only, no plain
+   version, K1 and K3 never; photo_v2's textured and flat rows within one
+   flipped count of phase 12a's anchors. (d) Meanwhile, two
+   python -m omniswarm_torch.tools.network_tester processes (5 s, 2
+   keyframes a second) and python -m omniswarm_torch.tools.bus_spy over
+   loopback multicast: exit 0, each tester receives the other's keyframes,
+   the spy hears both drones. One "tools" JSON line.
 8. One JSON line with the solver paths' numbers, one with the kernels'
    numbers (K1's launches on the estimator path as launches_estimator, on
    the node's threaded session as launches_node; K1's, K2's and K3's on the
@@ -262,7 +292,9 @@ non-zero without printing a result.
    launches_demo_d10; K1's on phase 13a's solves as launches_d10_100,
    launches_d10_1024 and launches_dense_loops; each kernel's on phase
    14a's bench rows as launches_bench and on the online window as
-   launches_online_window), then the result line.
+   launches_online_window; K1's on phase 15a's sweep as
+   launches_window_scale and levels_window_scale by F, each kernel's on the
+   textured eval as launches_textured_eval), then the result line.
 """
 from __future__ import annotations
 
@@ -278,7 +310,8 @@ import time
 import numpy as np
 
 K1_FULL_ROWS = ((40, 32, "warm"), (40, 32, "fallback"), (80, 128, "warm"),
-                (80, 128, "fallback"), (80, 256, "warm"))
+                (80, 128, "fallback"), (80, 256, "warm"), (80, 512, "warm"),
+                (80, 1024, "warm"), (80, 2048, "warm"))
 K1_EXTRA_ROWS = ((80, 4, "fallback"), (80, 4, "nan"), (80, 256, "fallback"),
                  (80, 256, "nan"))
 K1_BRANCHES = ("warm", "fallback", "nan")
@@ -1370,7 +1403,6 @@ TRAIN_TIMED_STEPS = 10      # (f) steps timed per row, after 2 warm-up steps
 K2_TRAIN_SHAPES = ((1, 64, 96), (16, 64, 96))
 # Phase 13a: the 10-drone tier and the loop-dense window
 D10_ATE_BAR = 0.15          # tests/test_scale10.py:25, held at 10 x 100
-DENSE_CG_ITERS = (24, 16, 12, 8)
 DENSE_ITERS = 25            # bench.py:322
 D10_DEMO_STEPS = 15         # keyframe steps of the 10 x 30 image demo
 # Phase 14a: the measurement entry points. bf16 trunks against f32 at
@@ -1392,6 +1424,83 @@ K2_BENCH_SHAPES = ((4, 208, 400), (8, 208, 400), (16, 208, 400),
 BENCH_REPS = dict(reps=1, big_reps=1, frontend_runs=1, warm_up=False)
 CPU_BASELINE_REPS = 1
 ONLINE_SOLVES = 12
+# Phase 15a: the repository's remaining tools (omniswarm_torch/tools/). The
+# window-scale sweep at full width, one timed solve a size, held to the JAX
+# package's CPU anchors on its fused-level branch (PYTHONPATH=.
+# JAX_PLATFORMS=cpu python tools/solver_anchors.py --only window_scale
+# --frames F, one F a process); the largest F also solved twice.
+SWEEP_FRAMES = (1024, 2048, 4096, 8192, 16384)
+SWEEP_ITERS = 25
+SWEEP_REPEATED = 16384
+SWEEP_ANCHORS = {
+    1024: dict(cost=1198.1591796875, iterations=25, loops=35,
+              linear='smw',
+              relative_ate=0.0441221978975926),
+    2048: dict(cost=2392.098876953125, iterations=25, loops=75,
+              linear='smw',
+              relative_ate=0.047404607481641194),
+    4096: dict(cost=4951.50439453125, iterations=25, loops=155,
+              linear='smw',
+              relative_ate=0.053224952009715644),
+    8192: dict(cost=9719.021484375, iterations=25, loops=315,
+              linear='pcg',
+              relative_ate=0.04623721756314233),
+    16384: dict(cost=19926.568359375, iterations=25, loops=635,
+               linear='pcg',
+               relative_ate=0.04771133242956223),
+}
+# The replay tool on simulator-written CSV logs against the reference's
+# tools/replay_eval.py on the CPU (tools/solver_anchors.py --only replay),
+# both with max_solver_time 1e-6 s: each solve's window, status and
+# iterations equal, its cost within 1%, summary.json within 1e-3 m (rad):
+# about ten times what the port reads (1.3e-4 on the CPU, 9.7e-5 on an
+# H100), and below the smallest yaw RMSE (0.0046 rad)
+REPLAY_LOGS = dict(drones=3, seconds=30.0, seed=0)
+REPLAY_OFFSETS = (0.0, 2.0, 4.0)
+REPLAY_COST_RTOL = 0.01
+REPLAY_ATOL = 1e-3
+REPLAY_ANCHOR = {'solves': [{'solved': True,
+             'num_frames': 16,
+             'cost': 3.2649974822998047,
+             'iterations': 100},
+            {'solved': True,
+             'num_frames': 24,
+             'cost': 5.898416519165039,
+             'iterations': 100},
+            {'solved': True,
+             'num_frames': 32,
+             'cost': 11.636457443237305,
+             'iterations': 25},
+            {'solved': True,
+             'num_frames': 40,
+             'cost': 14.655035018920898,
+             'iterations': 25},
+            {'solved': True,
+             'num_frames': 40,
+             'cost': 16.752758026123047,
+             'iterations': 25}],
+ 'summary': {'per_drone': {'0': {'ate_pos': 0.051060286589929414,
+                                 'yaw_rmse': 0.006428801258388484},
+                           '1': {'ate_pos': 0.06254567122546667,
+                                 'yaw_rmse': 0.004650784321776963},
+                           '2': {'ate_pos': 0.1159529645644884,
+                                 'yaw_rmse': 0.014813279285873632}},
+             'relative_ate_pairs': {'0->1': 0.084728506271519,
+                                    '0->2': 0.05180538886133099,
+                                    '1->0': 0.0942967178763981,
+                                    '1->2': 0.06913753646668683,
+                                    '2->0': 0.06387001236018915,
+                                    '2->1': 0.07816489887790623},
+             'mean_relative_ate': 0.07366717678567171}}
+# Two network testers and the spy over loopback multicast, beside the
+# textured eval on the bundled SuperPoint checkpoints (photo_v2's rows are
+# phase 12a's (a) rows: held to TRAIN_ANCHORS)
+BUS_PORT = 17951
+BUS_SECONDS = 5
+TEXTURED_CKPTS = ("magicpoint=weights/superpoint_synthetic.npz",
+                  "photometric=weights/superpoint_photometric.npz",
+                  "photo_v2=weights/superpoint_photo_v2.npz")
+TEXTURED_N_EVAL = 24
 ONLINE_ANCHORS = {'frames': 1024,
                   'loops': 2000,
                   'solves': [{'window': [[100, 1123]],
@@ -3333,7 +3442,7 @@ def training_phase(card: str) -> dict:
 
 
 def tier10_solve(name: str, anchor: dict, D: int, F: int, seed: int,
-                 iters: int, k1: bool, **kw) -> dict:
+                 iters: int, k1: bool) -> dict:
     """One solve of phase 13a through entry(), twice (bit-equal), held to
     its JAX-CPU anchor: cost within 1%, the anchor's iteration count, cost
     below the initial one, relative ATE below raw VIO's; K1's launches at
@@ -3346,7 +3455,7 @@ def tier10_solve(name: str, anchor: dict, D: int, F: int, seed: int,
 
     def run():
         return entry(device="cuda", num_frames=F, num_drones=D, seed=seed,
-                     max_iterations=iters, **kw)
+                     max_iterations=iters)
 
     t0 = time.perf_counter()
     with k1_recording() as levels:
@@ -3442,17 +3551,10 @@ def tier10_phase(rows) -> dict:
     out["d10_1024"] = tier10_solve("d10_1024", SOLVER_ANCHORS["d10_1024"],
                                    10, 1024, 0, 20, k1=True)
     per_iteration["d10_1024"] = k1_per_iteration_of(rows, out["d10_1024"])
-    dense = SOLVER_ANCHORS["dense_loops_1024"]
-    out["dense"] = {}
-    for n in DENSE_CG_ITERS:
-        out["dense"][f"pcg{n}"] = tier10_solve(
-            f"dense pcg{n}", dense[f"pcg{n}"], 5, 1024, 4, DENSE_ITERS,
-            k1=True, loop_every=2, cg_iters=n)
-        per_iteration[f"dense_pcg{n}"] = k1_per_iteration_of(
-            rows, out["dense"][f"pcg{n}"])
-    out["dense"]["exact"] = tier10_solve(
-        "dense exact", dense["exact"], 5, 1024, 4, DENSE_ITERS, k1=False,
-        loop_every=2, exact_linear=True)
+    out["dense"] = dense_tool(rows)
+    for name, path in out["dense"].items():
+        if path["launches"]:
+            per_iteration[f"dense_{name}"] = k1_per_iteration_of(rows, path)
     out["solve_seconds"] = time.perf_counter() - t0
     out["demo"] = tier10_demo()
     out["k1_per_iteration"] = per_iteration
@@ -3661,6 +3763,261 @@ def measurement_phase() -> dict:
     return out
 
 
+def sweep_phase(rows) -> dict:
+    """Phase 15a (a): python -m omniswarm_torch.tools.window_scale_sweep's
+    rows at every F of SWEEP_FRAMES, one timed solve a size (the tool takes
+    the median of 3): K1 at SOLVE_LEVELS's shapes for (F, 5) once an
+    iteration, no plain level; each F within 1% of its JAX-CPU cost, with
+    its loops, iteration count and linear path; SWEEP_REPEATED solved twice
+    (bit-equal); relative ATE below raw VIO's at every F."""
+    import torch
+
+    from omniswarm_torch.solver.fused_level import fused_reduction_level_ref
+    from omniswarm_torch.tools.window_scale_sweep import sweep_row
+
+    t0 = time.perf_counter()
+    out, per_iteration = {}, {}
+    for F in SWEEP_FRAMES:
+        big = F == SWEEP_REPEATED
+        with k1_recording():
+            row = sweep_row(F, torch.device("cuda"), iters=SWEEP_ITERS,
+                            reps=0, repeat=big)
+        it = row["iterations"]
+        # the kernel launches of the first solve, as the tool recorded them
+        check_k1_levels(F, collections.Counter(
+            {(m, t): n for m, t, n in row["k1_levels"]}), it)
+        check(fused_reduction_level_ref.calls == 0,
+              f"sweep F={F}: the plain level ran")
+        print("window scale", json.dumps(row), flush=True)
+        check(math.isfinite(row["final_cost"])
+              and row["final_cost"] < row["initial_cost"],
+              f"sweep F={F}: cost {row['final_cost']} not below "
+              f"{row['initial_cost']}")
+        check(row["relative_ate"] < row["vio_relative_ate"],
+              f"sweep F={F}: relative ATE {row['relative_ate']} not below "
+              f"raw VIO's {row['vio_relative_ate']}")
+        want = SWEEP_ANCHORS[F]
+        held(f"sweep F={F} cost", row["final_cost"], want["cost"])
+        check((it, row["loops"], row["linear"]) == (
+            want["iterations"], want["loops"], want["linear"]),
+            f"sweep F={F}: {it} iterations, {row['loops']} loops, "
+            f"{row['linear']}; anchor {want}")
+        if big:
+            check(row["repeat_equal"], f"sweep F={F}: two solves differ")
+        out[F] = row
+        per_iteration[f"window_scale_{F}"] = k1_per_iteration_of(rows, dict(
+            F=F, iterations=it, launches=row["k1_launches"],
+            levels=row["k1_levels"], path=f"window scale F={F}"))
+    return dict(rows=out, k1_per_iteration=per_iteration,
+                seconds=time.perf_counter() - t0)
+
+
+def dense_tool(rows) -> dict:
+    """Phase 13a (b): the loop-dense window through
+    python -m omniswarm_torch.tools.bench_dense_loops (exact=True, each run's
+    unperturbed solve timed and repeated), each PCG run and the exact one
+    held to SOLVER_ANCHORS["dense_loops_1024"] (cost 1%, iterations,
+    bit-equal repeat, relative ATE below raw VIO's, K1 at the F=1024 shapes
+    on the packed runs, none on the exact one); the Woodbury run
+    (linear="smw", no anchor) to a repeat, a cost decrease and K1's
+    shapes."""
+    import torch
+
+    from omniswarm_torch.solver.fused_level import fused_reduction_level_ref
+    from omniswarm_torch.tools import bench_dense_loops
+
+    with k1_recording():
+        res = bench_dense_loops.measure(
+            torch.device("cuda"), iters=DENSE_ITERS, reps=0, exact=True,
+            repeat=True)
+    check(fused_reduction_level_ref.calls == 0,
+          "the plain level ran on the dense window")
+    anchors = SOLVER_ANCHORS["dense_loops_1024"]
+    out = {}
+    for key in bench_dense_loops.runs(exact=True):
+        row, name = res[key], key.replace("pcg_cg", "pcg")
+        it = row["iterations"]
+        print(f"dense {name}", json.dumps(row), flush=True)
+        check(row["repeat_equal"], f"dense {name}: two solves differ")
+        check(row["final_cost"] < row["initial_cost"]
+              and row["relative_ate"] < row["vio_relative_ate"],
+              f"dense {name}: cost or relative ATE not below the start")
+        if key == "exact":
+            check(row["k1_launches"] == 0, "dense exact launched K1")
+        else:
+            check_k1_levels(1024, collections.Counter(
+                {(m, t): n for m, t, n in row["k1_levels"]}), it)
+        if name in anchors:
+            held(f"dense {name} cost", row["final_cost"],
+                 anchors[name]["cost"])
+            check(it == anchors[name]["iterations"],
+                  f"dense {name}: {it} iterations")
+        out[name] = dict(path=f"dense {name}", F=1024, loops=res["loops"],
+                         cost=row["final_cost"],
+                         anchor_cost=anchors.get(name, {}).get("cost"),
+                         iterations=it, relative_ate=row["relative_ate"],
+                         vio_relative_ate=row["vio_relative_ate"],
+                         launches=row["k1_launches"],
+                         levels=row["k1_levels"],
+                         ms_per_iteration=row["ms_per_iter"])
+    return out
+
+
+def replay_phase() -> dict:
+    """Phase 15a (b): python -m omniswarm_torch.tools.replay_eval on CSV
+    logs written from the simulator, held to REPLAY_ANCHOR: the same solves
+    over the same windows, every one solved, each solve's cost within
+    REPLAY_COST_RTOL and each summary.json value within REPLAY_ATOL,
+    relative ATE below raw VIO's, the anchor's iteration counts. The
+    estimator caps a solve at max_solver_time (0.5 s) over the ms an
+    iteration it measured, in steps of 25 with 25 the least, so the counts
+    would follow the host's speed: the tool runs with max_solver_time 1e-6
+    s, as its anchor did, and every solve after the second gets the least
+    budget on any host."""
+    import functools
+    from unittest import mock
+
+    from omniswarm_torch.tools import replay_eval
+
+    t0 = time.perf_counter()
+    paths = replay_eval.write_sim_logs(f"{WORK_DIR}/replay_logs",
+                                       **REPLAY_LOGS)
+    with mock.patch.object(replay_eval, "SolverParams", functools.partial(
+            replay_eval.SolverParams, max_solver_time=1e-6)):
+        res = replay_eval.main(
+            ["--logs", *(f"{p}:{o}" for p, o in zip(paths, REPLAY_OFFSETS)),
+             "--loops", "--out", f"{WORK_DIR}/replay_out"])
+    want = REPLAY_ANCHOR["solves"]
+    got = [{k: s[k] for k in ("solved", "num_frames", "cost", "iterations")}
+           for s in res["solves"]]
+    print(f"replay solves {json.dumps(got)} anchor {json.dumps(want)}",
+          flush=True)
+    check([(s["solved"], s["num_frames"], s["iterations"]) for s in got]
+          == [(s["solved"], s["num_frames"], s["iterations"]) for s in want],
+          "replay: solves, windows or iterations differ from the anchor's")
+    for i, (s, a) in enumerate(zip(got, want)):
+        check(abs(s["cost"] - a["cost"]) <= REPLAY_COST_RTOL * a["cost"],
+              f"replay solve {i}: cost {s['cost']} not within "
+              f"{REPLAY_COST_RTOL:.0%} of {a['cost']}")
+
+    def flat(d, prefix=""):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    with open(f"{WORK_DIR}/replay_out/summary.json") as f:
+        summary = dict(flat(json.load(f)))
+    anchor = dict(flat(REPLAY_ANCHOR["summary"]))
+    check(summary.keys() == anchor.keys(), "replay: summary keys differ")
+    worst = max(abs(summary[k] - anchor[k]) for k in anchor)
+    check(worst <= REPLAY_ATOL, f"replay: summary {worst} from its anchor")
+    check(res["relative_ate"] < res["vio_relative_ate"],
+          f"replay: relative ATE {res['relative_ate']} not below raw VIO's")
+    return dict(solves=got, summary_max_abs_err=worst,
+                relative_ate=res["relative_ate"],
+                vio_relative_ate=res["vio_relative_ate"],
+                seconds=time.perf_counter() - t0)
+
+
+def textured_phase() -> dict:
+    """Phase 15a (c): python -m omniswarm_torch.tools.eval_superpoint_textured
+    on the bundled SuperPoint checkpoints: K2 launched at
+    K2_TRAIN_SHAPES's (1, 64, 96) only, no plain version, K1 and K3 never;
+    photo_v2's textured and flat rows within TRAIN_FLIPS of phase 12a's
+    anchors (matches and correct matches)."""
+    from omniswarm_torch.ops.frontend_kernels import (
+        grid_nms, grid_nms_ref, retrieval_top1)
+    from omniswarm_torch.solver.fused_level import fused_reduction_level
+    from omniswarm_torch.tools import eval_superpoint_textured
+
+    t0 = time.perf_counter()
+    args = [a for c in TEXTURED_CKPTS for a in ("--ckpt", c)]
+    with k1_recording(), k2_recording() as shapes:
+        res = eval_superpoint_textured.main(
+            [*args, "--n-eval", str(TEXTURED_N_EVAL), "--out",
+             f"{WORK_DIR}/sp_eval.json"])
+    launches = dict(k1=fused_reduction_level.launches,
+                    k2=grid_nms.launches, k3=retrieval_top1.launches)
+    check(grid_nms_ref.calls == 0 and launches["k2"] > 0
+          and launches["k1"] == launches["k3"] == 0
+          and set(shapes) <= {K2_TRAIN_SHAPES[0]},
+          f"textured eval: launches {launches} at {dict(shapes)}")
+    photo = res["checkpoints"]["photo_v2"]
+    for row in ("textured", "flat"):
+        m = dict(matches=photo[f"{row}_matches"], correct=round(
+            photo[f"{row}_match_precision"] * photo[f"{row}_matches"]))
+        train_flips(f"textured eval photo_v2 {row}", m,
+                    TRAIN_ANCHORS["superpoint"]["matching"][row],
+                    ("matches", "correct"))
+    return dict(checkpoints=res["checkpoints"], launches=launches,
+                k2_shapes=[[*k, n] for k, n in sorted(shapes.items())],
+                seconds=time.perf_counter() - t0)
+
+
+def bus_processes():
+    """Phase 15a (d), started: two python -m
+    omniswarm_torch.tools.network_tester processes (drones 0 and 1, 2
+    keyframes a second for BUS_SECONDS) and python -m
+    omniswarm_torch.tools.bus_spy on BUS_PORT over loopback multicast."""
+    common = ["--port", str(BUS_PORT)]
+    testers = [subprocess.Popen(
+        [sys.executable, "-m", "omniswarm_torch.tools.network_tester",
+         "--drone-id", str(d), "--rate", "2", "--duration",
+         str(BUS_SECONDS), *common], stdout=subprocess.PIPE, text=True)
+        for d in (0, 1)]
+    spy = subprocess.Popen(
+        [sys.executable, "-m", "omniswarm_torch.tools.bus_spy", "--interval",
+         "1", "--duration", str(BUS_SECONDS + 8), *common],
+        stdout=subprocess.PIPE, text=True)
+    return testers, spy
+
+
+def bus_results(testers, spy) -> dict:
+    """Phase 15a (d), ended: both testers exit 0, each received the other's
+    keyframes (the receive rate printed), the spy heard both drones on the
+    keyframe channels."""
+    import re
+
+    out = {}
+    for d, p in enumerate(testers):
+        text = p.communicate(timeout=120)[0]
+        print(f"network tester {d}: {text.strip()}", flush=True)
+        m = re.search(r"sent (\d+) keyframes; received (\d+) from peers",
+                      text)
+        rate = re.search(rf"drone {1 - d}: receive rate ([\d.]+)%", text)
+        check(p.returncode == 0 and m is not None and rate is not None
+              and int(m.group(2)) > 0,
+              f"network tester {d}: exit {p.returncode}")
+        out[d] = dict(sent=int(m.group(1)), received=int(m.group(2)),
+                      receive_rate_pct=float(rate.group(1)))
+    text = spy.communicate(timeout=120)[0]
+    check(spy.returncode == 0 and "VIOKF_HEADER" in text
+          and "drone 0:" in text and "drone 1:" in text,
+          f"bus spy: exit {spy.returncode}, heard {text[-300:]!r}")
+    print(f"bus spy: {len(text.splitlines())} lines, both drones heard",
+          flush=True)
+    return out
+
+
+def tools_phase(rows) -> dict:
+    """Phase 15a: the repository's remaining tools (see the docstring)."""
+    t0 = time.perf_counter()
+    out = dict(sweep=sweep_phase(rows))
+    out["replay"] = replay_phase()
+    testers, spy = bus_processes()
+    out["textured"] = textured_phase()
+    out["bus"] = bus_results(testers, spy)
+    out["seconds"] = time.perf_counter() - t0
+    print("tools", json.dumps(out), flush=True)
+    print(f"tools phase {out['seconds']:.1f} s (sweep "
+          f"{out['sweep']['seconds']:.1f} s, replay "
+          f"{out['replay']['seconds']:.1f} s, textured eval "
+          f"{out['textured']['seconds']:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
     try:
@@ -3678,11 +4035,9 @@ def main() -> int:
               "not found)", file=sys.stderr)
         return 2
 
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip()
+    from omniswarm_torch.benchutil import card as card_of
+
+    card = card_of("cuda:0")
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -3750,6 +4105,8 @@ def main() -> int:
     print(f"tier-10 phase {time.perf_counter() - t0:.1f} s (solves "
           f"{tier10['solve_seconds']:.1f} s)", flush=True)
     measured = measurement_phase()
+    tools = tools_phase(rows)
+    k1_per_iteration.update(tools["sweep"]["k1_per_iteration"])
 
     main = next(r for r in rows
                 if (r["m"], r["t"], r["branch"]) == (40, 32, "warm"))
@@ -3788,6 +4145,11 @@ def main() -> int:
         "launches_bench": {k: v["k1"] for k, v in
                            measured["bench"]["launches"].items()},
         "launches_online_window": measured["online"]["k1_launches"],
+        "launches_window_scale": {F: r["k1_launches"] for F, r in
+                                  tools["sweep"]["rows"].items()},
+        "levels_window_scale": {F: r["k1_levels"] for F, r in
+                                tools["sweep"]["rows"].items()},
+        "launches_textured_eval": tools["textured"]["launches"]["k1"],
         "levels_bench": measured["bench"]["k1_levels"],
         "levels_online_window": measured["online"]["k1_levels"],
         "shapes": rows,
@@ -3809,6 +4171,8 @@ def main() -> int:
         "launches_bench": {k: v["k2"] for k, v in
                            measured["bench"]["launches"].items()},
         "shapes_bench": measured["bench"]["k2_shapes"],
+        "launches_textured_eval": tools["textured"]["launches"]["k2"],
+        "shapes_textured_eval": tools["textured"]["k2_shapes"],
         "launches_online_window": measured["online"]["k2_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows
                            + train["k2_checked"] + measured["k2_rows"]),
@@ -3833,6 +4197,7 @@ def main() -> int:
         "launches_demo_d10": tier10["demo"]["launches"]["k3"],
         "launches_bench": measured["bench"]["k3_launches"],
         "launches_online_window": measured["online"]["k3_launches"],
+        "launches_textured_eval": tools["textured"]["launches"]["k3"],
         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
         "ms": k3_main["ms"],
         "plain_ms": k3_main["plain_ms"],

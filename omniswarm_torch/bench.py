@@ -58,7 +58,7 @@ import torch
 from omniswarm_torch import sim
 from omniswarm_torch.benchutil import (BATCH, BUDGET_ANCHOR_ITER_PER_S, ITERS,
                                        batch_inits, card_peaks, count_ops,
-                                       median_time, pert, sync)
+                                       measured_solve, sim_problem, sync)
 from omniswarm_torch.convert import dense_graph_to_torch
 from omniswarm_torch.core.device import resolve_device
 from omniswarm_torch.core.precision import highp
@@ -106,27 +106,12 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"bench: {msg}")
 
 
-def _problem(dev, **params):
-    """(sim data, device graph, f32 init on the device, f32 init numpy)."""
-    data = sim.generate(sim.SimParams(**params))
-    init_np = np.asarray(data.vio, np.float32)
-    return (data, dense_graph_to_torch(dense_graph_from_sim(data), dev),
-            torch.from_numpy(init_np).to(dev), init_np)
-
-
-def _solve_and_time(solve, init, init_np, reps: int, dev, warm_up: bool):
+def _solve_and_time(solve, init_np, reps: int, dev, warm_up: bool):
     """(``solve(init)``, seconds a solve): the median over ``reps``
     perturbed inits after that first solve, or with ``warm_up`` False the
     first solve's own time (one timed solve, nothing run before it)."""
-    if warm_up:
-        inits = [torch.from_numpy(pert(init_np, k)).to(dev)
-                 for k in range(reps)]
-        return solve(init), median_time(lambda k: solve(inits[k]).poses,
-                                        reps)[0]
-    t0 = time.perf_counter()
-    res = solve(init)
-    sync(res.poses)
-    return res, time.perf_counter() - t0
+    res, got = measured_solve(solve, init_np, dev, reps if warm_up else 0)
+    return res, got["seconds"]
 
 
 @highp()
@@ -151,10 +136,10 @@ def iteration_cost(graph, poses):
 
 
 def headline(s: Sizes, dev, ctx: dict) -> dict:
-    _, graph, init, init_np = _problem(dev, num_drones=5,
-                                       num_frames=s.frames, seed=0)
+    _, graph, init, init_np = sim_problem(dev, num_drones=5,
+                                          num_frames=s.frames, seed=0)
     kw = dict(device=dev, max_iterations=s.iters, function_tolerance=0.0)
-    res, dt = _solve_and_time(lambda p: lm_solve_bt(graph, p, **kw), init,
+    res, dt = _solve_and_time(lambda p: lm_solve_bt(graph, p, **kw),
                               init_np, s.reps, dev, s.warm_up)
     check(np.isfinite(float(res.cost)), "solver diverged")
     check(float(res.cost) < float(res.initial_cost), "no cost decrease")
@@ -162,8 +147,8 @@ def headline(s: Sizes, dev, ctx: dict) -> dict:
 
     inits_np = batch_inits(init_np)
     resb, dtb = _solve_and_time(
-        lambda p: lm_solve_bt_batched(graph, p, **kw),
-        torch.from_numpy(inits_np).to(dev), inits_np, s.reps, dev, s.warm_up)
+        lambda p: lm_solve_bt_batched(graph, p, **kw), inits_np, s.reps,
+        dev, s.warm_up)
     check(bool(torch.isfinite(resb.cost).all()), "batched solver diverged")
     aggregate = resb.iterations * BATCH / dtb
     ctx.update(graph=graph, init=init, per_problem=per_problem,
@@ -220,10 +205,10 @@ def baseline(path, ctx: dict) -> dict:
 
 def kf1024(s: Sizes, dev, ctx: dict) -> dict:
     F = s.big_frames
-    _, graph, init, init_np = _problem(dev, num_drones=5, num_frames=F,
-                                       seed=1, loop_every=128)
+    _, graph, init, init_np = sim_problem(dev, num_drones=5, num_frames=F,
+                                          seed=1, loop_every=128)
     kw = dict(device=dev, max_iterations=s.big_iters, function_tolerance=0.0)
-    res, dt = _solve_and_time(lambda p: lm_solve_bt(graph, p, **kw), init,
+    res, dt = _solve_and_time(lambda p: lm_solve_bt(graph, p, **kw),
                               init_np, s.big_reps, dev, s.warm_up)
     check(np.isfinite(float(res.cost)), "kf1024 diverged")
     it = res.iterations
@@ -254,11 +239,11 @@ def kf1024(s: Sizes, dev, ctx: dict) -> dict:
 
 
 def dense_loops(s: Sizes, dev, ctx: dict) -> dict:
-    data, graph, init, init_np = _problem(dev, num_drones=5,
+    data, graph, _, init_np = sim_problem(dev, num_drones=5,
                                           num_frames=s.big_frames, seed=4,
                                           loop_every=2)
     kw = dict(device=dev, max_iterations=s.big_iters, function_tolerance=0.0)
-    res, dt = _solve_and_time(lambda p: lm_solve_bt(graph, p, **kw), init,
+    res, dt = _solve_and_time(lambda p: lm_solve_bt(graph, p, **kw),
                               init_np, s.big_reps, dev, s.warm_up)
     check(np.isfinite(float(res.cost)), "dense loops diverged")
     check(float(res.cost) < float(res.initial_cost),
@@ -270,10 +255,10 @@ def dense_loops(s: Sizes, dev, ctx: dict) -> dict:
 
 
 def d10(s: Sizes, dev, ctx: dict) -> dict:
-    _, graph, init, init_np = _problem(dev, num_drones=10,
+    _, graph, _, init_np = sim_problem(dev, num_drones=10,
                                        num_frames=s.frames, seed=3)
     kw = dict(device=dev, max_iterations=s.d10_iters, function_tolerance=0.0)
-    res, dt = _solve_and_time(lambda p: lm_solve_bt(graph, p, **kw), init,
+    res, dt = _solve_and_time(lambda p: lm_solve_bt(graph, p, **kw),
                               init_np, s.big_reps, dev, s.warm_up)
     check(np.isfinite(float(res.cost)), "d10 diverged")
     return {"d10_iter_per_s": round(res.iterations / dt, 2)}
@@ -300,10 +285,10 @@ def fleet(s: Sizes, dev, ctx: dict) -> dict:
                                    max_iterations=s.fleet_iters,
                                    function_tolerance=tol)
 
-    res, dt = _solve_and_time(lambda p: solve(0.0, p), poses, poses_np,
+    res, dt = _solve_and_time(lambda p: solve(0.0, p), poses_np,
                               s.big_reps, dev, s.warm_up)
     check(bool(torch.isfinite(res.cost).all()), "fleet diverged")
-    conv, dt_c = _solve_and_time(lambda p: solve(1e-6, p), poses, poses_np,
+    conv, dt_c = _solve_and_time(lambda p: solve(1e-6, p), poses_np,
                                  s.big_reps, dev, s.warm_up)
     return {"fleet_aggregate_iter_per_s":
                 round(res.iterations * FLEET / dt, 2),

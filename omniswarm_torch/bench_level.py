@@ -25,7 +25,6 @@ import argparse
 import importlib.util
 import json
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -33,8 +32,9 @@ import numpy as np
 import torch
 
 from omniswarm_torch import kernels
-from omniswarm_torch.benchutil import (SOLVE_LEVELS, bound, level_bound_ms,
-                                       random_level, time_cold_ms, time_ms)
+from omniswarm_torch.benchutil import (SOLVE_LEVELS, bound, card,
+                                       level_bound_ms, random_level,
+                                       time_cold_ms, time_ms)
 from omniswarm_torch.core.precision import highp
 from omniswarm_torch.solver.fused_level import _pad_b
 
@@ -132,11 +132,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_level: needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
-    print(card, flush=True)
+    print(card("cuda"), flush=True)
     kernels.build(args.kernels)
     other = other_kernels(args.other)
     other.build(args.kernels)

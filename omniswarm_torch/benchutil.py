@@ -7,13 +7,18 @@ HBM), state the least time the card could take with ``bound``, and build
 fused-level (K1) inputs with ``random_level``. ``omniswarm_torch.bench``
 (the counterpart of the root ``bench.py``) takes its constants,
 ``median_time``, ``pert``, the card's peaks (``card_peaks``) and the
-operation counter ``count_ops`` from here.
+operation counter ``count_ops`` from here; the tools of
+``omniswarm_torch/tools/`` their problems (``sim_problem``), the card's
+name and power limit (``card``), their timed solves (``measured_solve``)
+and stage times (``chain``, ``nudge``, ``stage_ms``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import statistics
+import subprocess
 import time
 from pathlib import Path
 from typing import Optional, Tuple
@@ -24,6 +29,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
+from omniswarm_torch import sim
+from omniswarm_torch.convert import dense_graph_to_torch
+from omniswarm_torch.solver.dense import dense_graph_from_sim
 from omniswarm_torch.solver.fused_level import (fused_reduction_level,
                                                 fused_reduction_level_ref)
 
@@ -44,10 +52,13 @@ LEVEL_RTOL = LEVEL_ATOL = 2e-4
 # (F, D, m, level sizes t): the warm levels one LM iteration of a packed
 # solve launches: 5 drones pack 2 at F=100 and 4 at F=1024; 10 drones pack
 # 2 at F=1024 (512 blocks of 80). F=1024's dense-loop window (D=5) launches
-# the D=5 row's levels.
+# the D=5 row's levels; the window-scale sweep (D=5, pack 4) one level more
+# a doubling of F, K1 at t = F/8 ... 4.
 SOLVE_LEVELS = ((100, 5, 40, (32, 16, 8, 4)),
                 (1024, 5, 80, (128, 64, 32, 16, 8, 4)),
-                (1024, 10, 80, (256, 128, 64, 32, 16, 8, 4)))
+                (1024, 10, 80, (256, 128, 64, 32, 16, 8, 4)),
+                *((F, 5, 80, tuple(F // 8 >> k for k in range(n)))
+                  for F, n in ((2048, 7), (4096, 8), (8192, 9), (16384, 10))))
 
 
 def time_ms(fn, reps: int = 21, calls: int = 20, warmup: int = 3) -> float:
@@ -141,6 +152,28 @@ def check_level(A, B, X0) -> float:
     return err
 
 
+def card(device) -> str:
+    """``device``'s card as ``nvidia-smi --query-gpu=name,power.limit``
+    prints it (its name and power limit), or ``"cpu"``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
+def sim_problem(dev, **params):
+    """(sim data, device graph, f32 init on ``dev``, f32 init numpy) of
+    ``sim.generate(SimParams(**params))``."""
+    data = sim.generate(sim.SimParams(**params))
+    init_np = np.asarray(data.vio, np.float32)
+    return (data, dense_graph_to_torch(dense_graph_from_sim(data), dev),
+            torch.from_numpy(init_np).to(dev), init_np)
+
+
 def batch_inits(vio: np.ndarray, lanes: int = BATCH) -> np.ndarray:
     """bench.py:151-156's multi-init batch: lane 0 the VIO init, lanes 1..
     N(0, 0.4) added to the positions of every drone but the first, from
@@ -186,6 +219,70 @@ def median_time(fn, reps: int = 5):
         sync(out)
         ts.append(time.perf_counter() - t0)
     return float(np.median(ts)), out
+
+
+def measured_solve(solve, init_np: np.ndarray, dev, reps: int,
+                   repeat: bool = False):
+    """(result, readings) of a solver call ``solve(init)``, the tools'
+    timing: the first solve of the unperturbed init, synchronised
+    (``first_solve_s``), with the (m, t) of its K1 kernel launches
+    (``k1_launches``, ``k1_levels`` as [m, t, count]); with ``repeat`` a
+    second solve of the same init, ``repeat_equal`` when its cost and poses
+    are bit-equal to the first's; then ``seconds``, the median over ``reps``
+    ``pert``-perturbed inits (``median_time``), or with ``reps`` 0 the
+    first solve's own time."""
+    init = torch.from_numpy(init_np).to(dev)
+    sync(init)
+    with k1_levels() as levels:
+        t0 = time.perf_counter()
+        res = solve(init)
+        sync(res.poses)
+        first = time.perf_counter() - t0
+    counts = collections.Counter(levels)
+    out = dict(first_solve_s=first, k1_launches=len(levels),
+               k1_levels=[[m, t, n] for (m, t), n in sorted(counts.items())])
+    if repeat:
+        again = solve(init)
+        out["repeat_equal"] = bool(torch.equal(res.cost, again.cost)
+                                   and torch.equal(res.poses, again.poses))
+    if reps:
+        inits = [torch.from_numpy(pert(init_np, k)).to(dev)
+                 for k in range(reps)]
+        out["seconds"] = median_time(lambda k: solve(inits[k]).poses,
+                                     reps)[0]
+    else:
+        out["seconds"] = first
+    return res, out
+
+
+def chain(step, first):
+    """A call that feeds ``step`` its own last output, from ``first`` on:
+    the profile tools' data-dependent stage chains."""
+    state = [first]
+
+    def call():
+        state[0] = step(state[0])
+        return state[0]
+    return call
+
+
+def nudge(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """A chain's next input: ``x`` moved by 1e-12 of a stage's output."""
+    return x + 1e-12 * d.reshape(x.shape)
+
+
+def stage_ms(name: str, fn, reps: int) -> float:
+    """Synchronised host ms per call of ``fn()`` over ``reps`` back-to-back
+    calls after one untimed call, printed beside ``name`` (the profile
+    tools' stage times)."""
+    sync(fn())
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    sync(out)
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    print(f"{name:40s} {ms:9.3f} ms/call", flush=True)
+    return ms
 
 
 def pert(arr_np, k: int, eps: float = 1e-6) -> np.ndarray:

@@ -11,6 +11,7 @@
 #include <cstring>
 #include <fcntl.h>
 #include <netinet/in.h>
+#include <poll.h>
 #include <sys/socket.h>
 #include <unistd.h>
 
@@ -56,16 +57,24 @@ int umc_open(const char* group, int port, int ttl, int loopback) {
   return fd;
 }
 
-// Returns bytes sent or -errno.
+// Returns bytes sent or -errno. A full send buffer (a keyframe is a burst
+// of ~200 datagrams) is waited out for up to 1 s, as a blocking send would
+// wait; only then does it return -EAGAIN.
 int umc_send(int fd, const char* group, int port, const uint8_t* data,
              int len) {
   sockaddr_in addr{};
   addr.sin_family = AF_INET;
   addr.sin_addr.s_addr = inet_addr(group);
   addr.sin_port = htons(static_cast<uint16_t>(port));
-  ssize_t n = sendto(fd, data, static_cast<size_t>(len), 0,
-                     reinterpret_cast<sockaddr*>(&addr), sizeof(addr));
-  return n < 0 ? -errno : static_cast<int>(n);
+  for (;;) {
+    ssize_t n = sendto(fd, data, static_cast<size_t>(len), 0,
+                       reinterpret_cast<sockaddr*>(&addr), sizeof(addr));
+    if (n >= 0) return static_cast<int>(n);
+    int e = errno;
+    if (e != EAGAIN && e != EWOULDBLOCK) return -e;
+    pollfd p{fd, POLLOUT, 0};
+    if (poll(&p, 1, 1000) <= 0) return -e;
+  }
 }
 
 // Returns bytes received, 0 if none pending, or -errno.

@@ -39,23 +39,19 @@ class EntryResult(NamedTuple):
 def entry(device="cuda", num_frames: int = 100, num_drones: int = 5,
           seed: int = 0, max_iterations: int = 20,
           fused: Optional[bool] = None, linear: str = "auto",
-          exact_linear: bool = False, loop_every: int = 5,
-          cg_iters: int = 24) -> EntryResult:
+          exact_linear: bool = False) -> EntryResult:
     """Run steps 1-4 of the main path and return the scored result.
 
     The solve runs with function_tolerance 0, so every one of the
     ``max_iterations`` LM iterations runs: the result then compares with
     the reference's near-converged cost and the kernel's launch count is
     fixed (4 per iteration at F=100). ``fused`` overrides the solver's
-    fused-level choice (default: on for packed blocks); ``linear``,
-    ``exact_linear`` and ``cg_iters`` pick the linear path
-    (``lm_solve_bt``). ``loop_every``: the simulator's loop stride (2 gives
-    bench.py's loop-dense window: 2,555 loops at F=1024, seed 4).
+    fused-level choice (default: on for packed blocks); ``linear`` and
+    ``exact_linear`` pick the linear path (``lm_solve_bt``).
     """
     dev = resolve_device(device)
     data = sim.generate(sim.SimParams(num_drones=num_drones,
-                                      num_frames=num_frames, seed=seed,
-                                      loop_every=loop_every))
+                                      num_frames=num_frames, seed=seed))
     graph = dense_graph_from_sim(data)
     launches0 = fused_reduction_level.launches
     if dev.type == "cuda":
@@ -64,7 +60,7 @@ def entry(device="cuda", num_frames: int = 100, num_drones: int = 5,
     res = lm_solve_bt(graph, data.vio, device=dev,
                       max_iterations=max_iterations,
                       function_tolerance=0.0, fused=fused, linear=linear,
-                      exact_linear=exact_linear, cg_iters=cg_iters)
+                      exact_linear=exact_linear)
     poses = res.poses.cpu().numpy()       # synchronises
     solve_s = time.perf_counter() - t0
     return EntryResult(

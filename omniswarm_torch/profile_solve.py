@@ -1,10 +1,11 @@
 """Where the time of the flagship LM solve and of the front-end goes on the GPU.
 
-    python -m omniswarm_torch.profile_solve [--frames 100 1024] [--frontend]
-                                            [--estimator] [--demo]
+    python -m omniswarm_torch.profile_solve [--frames 100 1024] [--sweep]
+                                            [--frontend] [--estimator] [--demo]
 
-Builds the seed-0, 5-drone problem, runs one warm-up solve, then traces one
-solve of 20 LM iterations with ``torch.profiler`` (CPU and
+Builds the seed-0, 5-drone problem (with ``--sweep`` the window-scale
+sweep's: seed 1, ``loop_every=128``), runs one warm-up solve, then traces
+one solve of 20 LM iterations with ``torch.profiler`` (CPU and
 CUDA activities). Prints one JSON line: wall ms per iteration (host clock,
 synchronised), device-busy ms per iteration (the union of kernel intervals
 in the trace), the device's idle share, K1's (``fused_level_kernel``,
@@ -41,12 +42,12 @@ import argparse
 import collections
 import contextlib
 import json
-import subprocess
 import time
 
 import torch
 
 from omniswarm_torch import sim
+from omniswarm_torch.benchutil import card
 from omniswarm_torch.core.device import resolve_device
 from omniswarm_torch.solver.dense import dense_graph_from_sim, lm_solve_bt
 
@@ -69,13 +70,14 @@ def _busy_us(intervals) -> float:
 ITERATIONS = 20
 
 
-def profile(frames: int, top: int = 12) -> dict:
+def profile(frames: int, top: int = 12, seed: int = 0,
+            loop_every: int = 5) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     dev = resolve_device("cuda")
     data = sim.generate(sim.SimParams(num_drones=5, num_frames=frames,
-                                      seed=0))
+                                      seed=seed, loop_every=loop_every))
     graph = dense_graph_from_sim(data)
     kw = dict(device=dev, max_iterations=ITERATIONS, function_tolerance=0.0)
     lm_solve_bt(graph, data.vio, **kw)             # warm-up
@@ -91,7 +93,8 @@ def profile(frames: int, top: int = 12) -> dict:
         prof, n, top, "iteration")
     k1 = [v for name, v in per_kernel.items() if "fused_level_kernel" in name]
     return {
-        "card": _card(), "frames": frames, "iterations": n,
+        "card": card("cuda"), "frames": frames, "seed": seed,
+        "loops": len(data.loops), "iterations": n,
         "cost": float(res.cost),
         "wall_ms_per_iteration": wall_s * 1e3 / n,
         "device_busy_ms_per_iteration": busy_us / 1e3 / n,
@@ -102,13 +105,6 @@ def profile(frames: int, top: int = 12) -> dict:
         "top_kernels": top_kernels,
         "note": "the traced solve includes its cold seed factorization",
     }
-
-
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
 
 
 def _device_events(prof):
@@ -179,7 +175,7 @@ def profile_frontend(top: int = 15) -> dict:
              "K3 retrieval_kernel": ("retrieval_kernel",),
              "sort kernels (top-K)": ("sort", "Sort")}
     return {
-        "card": _card(), "path": "frontend", "steps": n,
+        "card": card("cuda"), "path": "frontend", "steps": n,
         "views_per_step": 4 * prep.data.gt.shape[1],
         "wall_ms_per_step": wall_s * 1e3 / n,
         "traced_extract_ms_per_step": float(out[4].mean()),
@@ -232,7 +228,7 @@ def profile_estimator(top: int = 12) -> list:
         k1 = [v for nm, v in per_kernel.items() if "fused_level_kernel" in nm]
         wall_s = traced["wall_s"]
         out.append({
-            "card": _card(), "path": f"estimator {name}", "solve": last,
+            "card": card("cuda"), "path": f"estimator {name}", "solve": last,
             "F": s["F"], "linear": s["linear"], "pack": s["pack"],
             "lanes": s["lanes"], "iterations": s["iterations"],
             "cost": s["cost"], "wall_ms": wall_s * 1e3,
@@ -306,7 +302,8 @@ def profile_demo(top: int = 12) -> dict:
     ticks = host["detector/retrieval"][1]
     top_kernels = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]
     return {
-        "card": _card(), "path": "image demo", "traced_frames": [first, last],
+        "card": card("cuda"), "path": "image demo",
+        "traced_frames": [first, last],
         "traced_ticks": ticks, "traced_wall_ms": wall_s * 1e3,
         "verify_lanes_per_tick": res["verify_lanes_per_tick"],
         "tick_ms_median": res["detector_tick_ms_median"],
@@ -329,6 +326,9 @@ def profile_demo(top: int = 12) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, nargs="+", default=[100])
+    ap.add_argument("--sweep", action="store_true",
+                    help="the window-scale sweep's problem (seed 1, "
+                         "loop_every=128)")
     ap.add_argument("--frontend", action="store_true",
                     help="profile the front-end path instead of the solve")
     ap.add_argument("--estimator", action="store_true",
@@ -346,8 +346,9 @@ def main() -> None:
         for row in profile_estimator():
             print(json.dumps(row), flush=True)
         return
+    problem = dict(seed=1, loop_every=128) if args.sweep else {}
     for frames in args.frames:
-        print(json.dumps(profile(frames)), flush=True)
+        print(json.dumps(profile(frames, **problem)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1150,6 +1150,23 @@ def _lane(graph: DenseGraph, b: int) -> DenseGraph:
                         for v in graph))
 
 
+def assemble_lanes(lanes, poses, **kw):
+    """``assemble_blocks`` of each lane's graph at its poses, stacked: the
+    batched LM's assembly (``kw``: the residuals' parameters)."""
+    outs = [assemble_blocks(gr, p, **kw) for gr, p in zip(lanes, poses)]
+    return [torch.stack(x) for x in zip(*outs)]
+
+
+def smw_lanes(A, Boff, g, U, lam, warm, **kw):
+    """``_smw_solve_core`` of each lane (``kw``: its keywords), stacked:
+    the batched LM's linear solve. Returns (dx (B, F*m), the lanes' warm
+    states)."""
+    outs = [_smw_solve_core(*args, **kw)
+            for args in zip(A, Boff, g, U, lam, warm)]
+    dx, warm = zip(*outs)
+    return torch.stack(dx), list(warm)
+
+
 @highp()
 def lm_solve_bt_batched(graph: DenseGraph, poses0_batch, *, device="cuda",
                         max_iterations: int = 100, huber_delta: float = 1.0,
@@ -1174,18 +1191,10 @@ def lm_solve_bt_batched(graph: DenseGraph, poses0_batch, *, device="cuda",
     F, D = lanes[0].pose_valid.shape
     pk = _auto_pack(F, 4 * D) if pack is None else pack
 
-    def assemble(batch):
-        outs = [assemble_blocks(gr, p, huber_delta=huber_delta,
-                                det_sphere_std=det_sphere_std,
-                                det_inv_dep_std=det_inv_dep_std)
-                for gr, p in zip(lanes, batch)]
-        return [torch.stack(x) for x in zip(*outs)]
-
-    def solve(A, Boff, g, U, lam, warm):
-        outs = [_smw_solve_core(*args, exact=exact_linear, pack=pk)
-                for args in zip(A, Boff, g, U, lam, warm)]
-        dx, warm = zip(*outs)
-        return torch.stack(dx), list(warm)
+    assemble = functools.partial(
+        assemble_lanes, lanes, huber_delta=huber_delta,
+        det_sphere_std=det_sphere_std, det_inv_dep_std=det_inv_dep_std)
+    solve = functools.partial(smw_lanes, exact=exact_linear, pack=pk)
 
     A, Boff, g, U, cost = assemble(poses)
     if not exact_linear:

@@ -79,7 +79,9 @@ def test_port_files_exist():
                  "omniswarm_torch/bench.py",
                  "omniswarm_torch/bench_frontend.py",
                  "omniswarm_torch/online_window.py",
-                 "omniswarm_torch/cpu_baseline.py"):
+                 "omniswarm_torch/cpu_baseline.py",
+                 *(f"omniswarm_torch/tools/{name}.py"
+                   for name in ("__init__", *TOOLS))):
         assert want in names
     for cu in ("fused_level", "grid_nms", "retrieval_top1"):
         assert (ROOT / f"omniswarm_torch/csrc/{cu}.cu").exists()
@@ -249,6 +251,48 @@ def test_measurement_entry_points_raise_without_cuda(monkeypatch):
                  lambda: pretrained_global_extractor(dtype=torch.bfloat16)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+# omniswarm_torch/tools/: each module that runs device work, with the
+# least arguments it takes
+TOOLS = {"window_scale_sweep": [], "bench_dense_loops": [],
+         "profile_fscale": [], "profile_f100": [], "profile_solver": [],
+         "profile_fleet": [], "replay_eval": ["--logs", "a.csv:0"],
+         "eval_superpoint_textured": ["--ckpt", "a=b.npz"]}
+# the host-only tools (the bus tools, the PCA fit), on UDP port 17933
+HOST_TOOLS = {"bus_spy": ["--duration", "0", "--port", "17933"],
+              "network_tester": ["--drone-id", "0", "--duration", "0",
+                                 "--port", "17933"],
+              "fit_pca": ["--dim", "4"]}
+
+
+@pytest.mark.parametrize("name", sorted(TOOLS))
+def test_tools_raise_without_cuda(monkeypatch, name):
+    """Every tool refuses to start without CUDA unless given --device cpu,
+    before it reads a file or opens a socket."""
+    import importlib
+
+    tool = importlib.import_module(f"omniswarm_torch.tools.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tool.main(TOOLS[name])
+
+
+@pytest.mark.parametrize("name", sorted(HOST_TOOLS))
+def test_host_tools_run_without_cuda(monkeypatch, tmp_path, name):
+    """The host-only tools take no --device and start without CUDA."""
+    import importlib
+
+    tool = importlib.import_module(f"omniswarm_torch.tools.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = HOST_TOOLS[name]
+    if name == "fit_pca":
+        desc = tmp_path / "d.npy"
+        np.save(desc, np.random.default_rng(0).normal(size=(32, 8)))
+        args = ["--desc", str(desc), *args]
+    with pytest.raises(SystemExit):
+        tool.main([*args, "--device", "cpu"])
+    assert tool.main(args) is not None
 
 
 def test_cv2_only_inside_the_jpeg_codec():

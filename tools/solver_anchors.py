@@ -48,6 +48,26 @@ alone. Phase 13a's entries (``--only d10_100 d10_1024 dense_loops_1024``)
 take about 30 minutes and 7.5 GB peak RSS on an 8-core CPU, 25 of those
 minutes the exact dense-loop solve, whose capacitance has 10,220 columns.
 
+``window_scale`` (phase 15a, ``--only window_scale [--frames F ...]``):
+``python -m omniswarm_torch.tools.window_scale_sweep``'s problems, 5 x F
+for F in 1,024 ... 16,384 (seed 1, ``loop_every=128``, 25 iterations,
+``function_tolerance=0``; Woodbury up to F=4,096, PCG by the "auto" rule
+above), on the fused-level branch as phase 13a's; each entry also holds
+its linear path, the simulation's and the solve's seconds and the peak RSS
+of the process so far (``peak_rss_gb``: run one F a process to read each
+size's own). On an 8-core CPU F = 1,024 ... 8,192 took 29-1,452 s of
+solve beside other jobs and F = 16,384 2,770 s alone (2.5 GB peak RSS).
+
+``replay`` (phase 15a, ``--only replay``): the reference's
+``tools/replay_eval.py`` (its estimator on the CPU) on CSV flight logs that
+``omniswarm_torch.tools.replay_eval.write_sim_logs`` writes from the
+simulator (3 drones, 30 s at 50 Hz, seed 0; offsets 0, 2 and 4 s), with
+``--loops`` and the tool's defaults (40 keyframe periods of 0.5 s, a solve
+every 10th) but ``max_solver_time`` 1e-6 s, so that every solve after the
+second gets the estimator's least iteration budget (25) on any host: each
+solve's status (window size, cost, iterations) and the report's
+``summary.json``.
+
     PYTHONPATH=. JAX_PLATFORMS=cpu python tools/solver_anchors.py --stall
 
 instead solves F=384 (seed 0, D=5, 20 iterations) with the reference's fast
@@ -58,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import sys
 import time
 
 import numpy as np
@@ -171,6 +192,92 @@ def tier10(out: dict, only) -> None:
             name: solve(params, 25, **kw) for name, kw in runs.items()}
 
 
+WINDOW_FRAMES = (1024, 2048, 4096, 8192, 16384)
+
+
+def peak_rss_gb() -> float:
+    """The process's peak resident set so far, GB (Linux: ru_maxrss KiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def window_scale(out: dict, frames) -> None:
+    """The window-scale sweep's entries (see the module docstring) into
+    ``out["window_scale"]``, keyed by F."""
+    import jax.numpy as jnp
+
+    from omniswarm_tpu import sim
+    from omniswarm_tpu.solver import dense
+
+    rows = out.setdefault("window_scale", {})
+    for F in frames:
+        t0 = time.perf_counter()
+        data = sim.generate(sim.SimParams(num_drones=5, num_frames=F,
+                                          seed=1, loop_every=128))
+        graph = dense.dense_graph_from_sim(data)
+        sim_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = dense.lm_solve_bt(graph, jnp.asarray(data.vio, jnp.float32),
+                                max_iterations=25, function_tolerance=0.0)
+        rec = summary(res, data.gt, t0, data.vio)
+        rec.update(loops=len(data.loops),
+                   linear=("pcg" if F > 4096 or 4 * graph.loops.valid.shape[0]
+                           > 4096 else "smw"),
+                   sim_seconds=round(sim_s, 1), peak_rss_gb=peak_rss_gb())
+        rows[str(F)] = rec
+        print(f"window_scale F={F}: {json.dumps(rec)}", file=sys.stderr,
+              flush=True)
+
+
+REPLAY_LOGS = dict(drones=3, seconds=30.0, seed=0)
+REPLAY_OFFSETS = (0.0, 2.0, 4.0)
+
+
+def replay(out: dict) -> None:
+    """The replay entry (see the module docstring) into ``out``."""
+    import functools
+    import os
+    import tempfile
+
+    from omniswarm_tpu import config
+    from omniswarm_tpu.swarm import estimator
+    from omniswarm_torch.tools.replay_eval import write_sim_logs
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import replay_eval as reference
+
+    solves, solve = [], estimator.SwarmEstimator.solve
+
+    def recording_solve(self, *args, **kw):
+        solves.append(solve(self, *args, **kw))
+        return solves[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_sim_logs(tmp, **REPLAY_LOGS)
+        argv = ["replay_eval.py", "--logs",
+                *(f"{p}:{o}" for p, o in zip(paths, REPLAY_OFFSETS)),
+                "--loops", "--out", os.path.join(tmp, "report")]
+        t0 = time.perf_counter()
+        estimator.SwarmEstimator.solve = recording_solve
+        params = config.SolverParams     # the reference imports it late
+        config.SolverParams = functools.partial(params, max_solver_time=1e-6)
+        saved, sys.argv = sys.argv, argv
+        try:
+            reference.main()
+        finally:
+            estimator.SwarmEstimator.solve = solve
+            config.SolverParams = params
+            sys.argv = saved
+        with open(os.path.join(tmp, "report", "summary.json")) as f:
+            summary = json.load(f)
+    out["replay"] = dict(
+        solves=[{k: s[k] for k in ("solved", "num_frames", "cost",
+                                   "iterations") if k in s} for s in solves],
+        summary=summary, seconds=round(time.perf_counter() - t0, 1),
+        peak_rss_gb=peak_rss_gb())
+
+
 TIER10 = ("d10_100", "d10_1024", "dense_loops_1024")
 BASE = ("pcg_1024", "exact_100", "batch_100", "cov_100", "dense_100",
         "generic_100", "multi_100")
@@ -228,8 +335,11 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--stall", action="store_true")
-    ap.add_argument("--only", nargs="+", choices=BASE + TIER10,
+    ap.add_argument("--only", nargs="+",
+                    choices=BASE + TIER10 + ("window_scale", "replay"),
                     default=BASE + TIER10)
+    ap.add_argument("--frames", nargs="+", type=int, default=WINDOW_FRAMES,
+                    help="the window_scale entry's sizes")
     args = ap.parse_args(argv)
     if args.stall:
         stall()
@@ -237,8 +347,12 @@ def main(argv=None) -> None:
     out = {}
     if set(args.only) & set(BASE):
         base(out, args.only)
+    if "replay" in args.only:
+        replay(out)
     with reference_fused_levels():
         tier10(out, args.only)
+        if "window_scale" in args.only:
+            window_scale(out, args.frames)
     print(json.dumps(out))
 
 
