@@ -159,7 +159,7 @@ non-zero without printing a result.
    drones; K1's launches on the threaded run (new level shapes checked
    against the plain version). Then python -m
    omniswarm_torch.runtime.run_node --no-udp in a subprocess at the
-   config's own cadence (force_freq 1), fed 4 frames a wall second from
+   config's own cadence (force_freq 1), fed 8 frames a wall second from
    its ready line: exit 0, at least 3 solves, the last at t >= 0.85 of the
    flight's final t, the last prediction of all 5 drones; printed: solves
    dispatched, messages that found one in flight, the median solve wall,
@@ -168,7 +168,8 @@ non-zero without printing a result.
    here; without one in the paced threaded session). (b) Two runtime.drone_process processes on the card over
    loopback multicast (tests/test_multiprocess.py's scenario: 2 drones x
    16 frames, seed 55, world seed 7): exit 0, each that solved within
-   relative ATE 0.3, at least one solved, loop edges crossed. (c) The
+   relative ATE 0.3 (its final solve's poses, whatever their cost), at
+   least one solved, loop edges crossed. (c) The
    feature demo's per-drone reports, written by 9a's first run: each
    summary.json's relative ATE equal to the demo's. One "node" JSON line.
 12a. The training path (omniswarm_torch.models.train_superpoint,
@@ -240,8 +241,9 @@ non-zero without printing a result.
    208 x 400) bit-exact against its plain version on random u**8 heat with
    and without NaN cells; timed warm and cold (distinct maps over 3x the
    L2), beside the plain version, the library call and the bytes bound.
-   (c) omniswarm_torch.cpu_baseline.measure with 1 repetition and no
-   warm-up call but torch_cpu_bt's (the module takes 3 after one) into
+   (c) omniswarm_torch.cpu_baseline.measure at 20 LM iterations (the
+   module: 100) with 1 repetition and no warm-up call but torch_cpu_bt's
+   (the module takes 3 after one) into
    build/chip_smoke/, then
    omniswarm_torch.bench.run at its own sizes with one timed solve a row,
    the row's first (the module warms up, then takes the medians of 5 and
@@ -285,6 +287,25 @@ non-zero without printing a result.
    keyframes a second) and python -m omniswarm_torch.tools.bus_spy over
    loopback multicast: exit 0, each tester receives the other's keyframes,
    the spy hears both drones. One "tools" JSON line.
+16a. The last reference tools (omniswarm_torch/tools/), after 15a. (a)
+   tools.convert_superpoint: a seeded SuperPointNet (the module's plain
+   twin) saved as a .pth with random PCA CSVs, converted with and without
+   them (the reference's keys, f32); the port's SuperPoint from the plain
+   .npz against the twin's forward on the card under highp at
+   tests/test_weight_conversion.py's bars (atol 1e-4, rtol 1e-3) on 4
+   images of 208 x 400; the SuperPointExtractor from the PCA .npz on them
+   launches K2 at (4, 208, 400) (counted; no plain version), and K2 there
+   is bit-equal to its plain version on the twin's heat. (b)
+   tools.drift_probe with DIR = this tree, one pair of child processes
+   (the headline's 5 x 100 solve, 1 warm + 1 timed): equal iteration
+   counts, bit-equal costs, K1 launched in each child (their counts are
+   the children's own); the times are printed, not held. (c)
+   tools.comm_model's F = 256 row on 8 gloo CPU ranks: the LM iteration's
+   calls and bytes equal to COMM_MODEL.json's plus the named [cost | bad]
+   psum (one all-reduce, 4 B), the fleet without data collectives;
+   and one world-1 timing of lm_solve_bt on the card (K1 launched, level
+   shapes outside the kernel phase checked). One "reference tools" JSON
+   line.
 8. One JSON line with the solver paths' numbers, one with the kernels'
    numbers (K1's launches on the estimator path as launches_estimator, on
    the node's threaded session as launches_node; K1's, K2's and K3's on the
@@ -294,7 +315,9 @@ non-zero without printing a result.
    14a's bench rows as launches_bench and on the online window as
    launches_online_window; K1's on phase 15a's sweep as
    launches_window_scale and levels_window_scale by F, each kernel's on the
-   textured eval as launches_textured_eval), then the result line.
+   textured eval as launches_textured_eval; phase 16a's as
+   launches_drift_probe and launches_comm_model for K1, launches_convert
+   for K2, and launches_reference_tools for K3), then the result line.
 """
 from __future__ import annotations
 
@@ -1236,7 +1259,7 @@ LAYOUT_BAR = 5e-3           # __graft_entry__.py:93, :114, :147
 LAYOUT_RUNS = ((1, "nccl"), (4, "gloo"))
 # The production node's phase (11a)
 NODE_DRONES = 5
-NODE_FPS = 4.0              # frames a wall second fed to the free node
+NODE_FPS = 8.0              # frames a wall second fed to the free node
 NODE_FINAL_SHARE = 0.85     # tests/test_run_node.py:168-170
 NODE_MIN_SOLVED = 3
 NODE_MP_ATE = 0.3           # tests/test_multiprocess.py:52
@@ -1423,6 +1446,7 @@ K2_BENCH_SHAPES = ((4, 208, 400), (8, 208, 400), (16, 208, 400),
                    (64, 208, 400))
 BENCH_REPS = dict(reps=1, big_reps=1, frontend_runs=1, warm_up=False)
 CPU_BASELINE_REPS = 1
+CPU_BASELINE_ITERS = 20     # the module's 100 took 60 s of the host
 ONLINE_SOLVES = 12
 # Phase 15a: the repository's remaining tools (omniswarm_torch/tools/). The
 # window-scale sweep at full width, one timed solve a size, held to the JAX
@@ -1495,6 +1519,11 @@ REPLAY_ANCHOR = {'solves': [{'solved': True,
 # Two network testers and the spy over loopback multicast, beside the
 # textured eval on the bundled SuperPoint checkpoints (photo_v2's rows are
 # phase 12a's (a) rows: held to TRAIN_ANCHORS)
+CONVERT_SHAPE = (4, 208, 400)       # 16a (a): the front-end's views
+CONVERT_BARS = dict(atol=1e-4, rtol=1e-3)   # tests/test_weight_conversion.py
+DRIFT_ORDER = ("other", "this")     # 16a (b): one pair of children,
+DRIFT_REPS = 1                      # one timed solve each
+COMM_FRAMES = (256,)                # 16a (c)
 BUS_PORT = 17951
 BUS_SECONDS = 5
 TEXTURED_CKPTS = ("magicpoint=weights/superpoint_synthetic.npz",
@@ -3029,7 +3058,8 @@ def node_processes() -> dict:
               f"{row.get('loops_received')}", flush=True)
         check(row["returncode"] == 0, f"drone process {row['drone']}: "
               f"{row['tail']}")
-        check(not row["solved"] or row["relative_ate"] < NODE_MP_ATE,
+        check(not row["solved"] or (row["relative_ate"] is not None
+                                    and row["relative_ate"] < NODE_MP_ATE),
               f"drone process {row['drone']}: relative ATE "
               f"{row['relative_ate']}")
     rows = out["processes"]
@@ -3656,8 +3686,8 @@ def k2_bench_phase() -> list:
 
 
 def bench_phase() -> dict:
-    """Phase 14a (c): the CPU baseline (CPU_BASELINE_REPS repetition,
-    warm_up=False), then
+    """Phase 14a (c): the CPU baseline (CPU_BASELINE_ITERS iterations,
+    CPU_BASELINE_REPS repetition, warm_up=False), then
     python -m omniswarm_torch.bench's run at its own sizes with BENCH_REPS,
     printed as one "bench" line: every key of BENCH_r05.json's parsed, no
     *_error key, kf1024_fused_cost_delta within the 2e-3 bar, K1 and K2
@@ -3670,7 +3700,8 @@ def bench_phase() -> dict:
     from omniswarm_torch.solver.fused_level import fused_reduction_level_ref
 
     t0 = time.perf_counter()
-    base = cpu_baseline.measure(reps=CPU_BASELINE_REPS, warm_up=False)
+    base = cpu_baseline.measure(CPU_BASELINE_ITERS, reps=CPU_BASELINE_REPS,
+                                warm_up=False)
     base_path = f"{WORK_DIR}/baseline_cpu.json"
     os.makedirs(WORK_DIR, exist_ok=True)
     with open(base_path, "w") as f:
@@ -4018,6 +4049,146 @@ def tools_phase(rows) -> dict:
     return out
 
 
+def convert_phase() -> dict:
+    """Phase 16a (a): the weight converter, the converted SuperPoint on the
+    card against its twin, and K2 launched from the converted file."""
+    import torch
+
+    from omniswarm_torch import kernels
+    from omniswarm_torch.core.precision import highp
+    from omniswarm_torch.models.superpoint import (
+        SuperPoint, SuperPointExtractor, load_params_npz, net_state)
+    from omniswarm_torch.ops.frontend_kernels import (
+        grid_nms, grid_nms_ref, retrieval_top1)
+    from omniswarm_torch.solver.fused_level import fused_reduction_level
+    from omniswarm_torch.tools import convert_superpoint as conv
+
+    t0 = time.perf_counter()
+    work = f"{WORK_DIR}/convert"
+    os.makedirs(work, exist_ok=True)
+    twin = conv.seeded_twin(0)
+    torch.save(twin.state_dict(), f"{work}/sp.pth")
+    rng = np.random.default_rng(0)
+    np.savetxt(f"{work}/c.csv", rng.normal(size=(64, 256)), delimiter=",")
+    np.savetxt(f"{work}/m.csv", rng.normal(size=(1, 256)), delimiter=",")
+    plain = conv.main(["--pth", f"{work}/sp.pth", "--out", f"{work}/sp.npz"])
+    pca = conv.main(["--pth", f"{work}/sp.pth", "--pca-components",
+                     f"{work}/c.csv", "--pca-mean", f"{work}/m.csv",
+                     "--out", f"{work}/sp_pca.npz"])
+    want_keys = sorted(f"{n}.{leaf}" for n in conv.LAYERS
+                       for leaf in ("weight", "bias"))
+    check(sorted(plain) == want_keys and sorted(pca) == sorted(
+        want_keys + ["pca_components", "pca_mean"])
+          and all(v.dtype == np.float32 for v in pca.values()),
+          f"converter keys {sorted(pca)}")
+
+    B, H, W = CONVERT_SHAPE
+    imgs = torch.from_numpy(np.random.default_rng(1).uniform(
+        size=(B, 1, H, W)).astype(np.float32)).cuda()
+    sp = SuperPoint().cuda().eval()
+    sp.load_state_dict(net_state(load_params_npz(f"{work}/sp.npz")))
+    twin = twin.cuda()
+    errs = {}
+    with highp(), torch.no_grad():
+        got, want = sp(imgs), twin(imgs)
+        for name, g, w in zip(("heat", "desc"), got, want):
+            close = torch.allclose(g, w, **CONVERT_BARS)
+            errs[name] = float((g - w).abs().max())
+            check(close, f"converted SuperPoint {name}: max abs err "
+                  f"{errs[name]}")
+        ex = SuperPointExtractor(load_params_npz(f"{work}/sp_pca.npz")
+                                 ).cuda().eval()
+        with k1_recording(), k2_recording() as shapes:
+            xy, scores, desc, valid = ex(imgs)
+            torch.cuda.synchronize()
+        launches = dict(k1=fused_reduction_level.launches,
+                        k2=grid_nms.launches, k3=retrieval_top1.launches)
+        check(grid_nms_ref.calls == 0 and launches["k2"] == 1
+              and launches["k1"] == launches["k3"] == 0
+              and set(shapes) == {CONVERT_SHAPE},
+              f"converted extractor: launches {launches} at {dict(shapes)}")
+        check(bool(valid.any()) and bool(torch.isfinite(desc).all())
+              and desc.shape[-1] == 64, "converted extractor: no keypoints")
+        heat = want[0].contiguous()
+        k2 = kernels.grid_nms(heat, ex.nms_dist)
+        ref = grid_nms_ref(heat, ex.nms_dist)
+        torch.cuda.synchronize()
+        check(torch.equal(k2, ref), "K2 disagrees on the twin's heat")
+    checked = [dict(shape=list(CONVERT_SHAPE), r=ex.nms_dist,
+                    kind="converted_twin_heat", aligned=True,
+                    kept=int((k2 > 0).sum()),
+                    max_abs_err=float((k2 - ref).abs().max()))]
+    return dict(keys=len(pca), max_abs_err=errs, launches=launches,
+                keypoints=int(valid.sum()), k2_checked=checked,
+                seconds=time.perf_counter() - t0)
+
+
+def drift_phase() -> dict:
+    """Phase 16a (b): tools.drift_probe against this tree, one pair."""
+    from omniswarm_torch.tools import drift_probe
+
+    t0 = time.perf_counter()
+    res = drift_probe.probe(".", device="cuda", order=DRIFT_ORDER,
+                            reps=DRIFT_REPS)
+    rows, summary = res["rows"], res["summary"]
+    check(summary["iters_equal"] and summary["costs_equal"],
+          f"drift_probe: iterations {[r['iters'] for r in rows]}, costs "
+          f"{[r['cost'] for r in rows]}")
+    check(all(r["k1_launches"] > 0 for r in rows),
+          f"drift_probe: K1 launches {[r['k1_launches'] for r in rows]}")
+    return dict(summary=summary, rows=rows,
+                k1_launches=sum(r["k1_launches"] for r in rows),
+                seconds=time.perf_counter() - t0)
+
+
+def comm_phase() -> dict:
+    """Phase 16a (c): tools.comm_model at F = 256 against COMM_MODEL.json,
+    the fleet, and one world-1 timing on the card."""
+    from omniswarm_torch.benchutil import card
+    from omniswarm_torch.solver.fused_level import (
+        fused_reduction_level, fused_reduction_level_ref)
+    from omniswarm_torch.tools import comm_model
+
+    t0 = time.perf_counter()
+    comm = comm_model.traffic(COMM_FRAMES, ndev=8, timeout_s=300)
+    with open("COMM_MODEL.json") as f:
+        recorded = {r["F"]: r for r in json.load(f)["frame_sharded"]}
+    for row in comm["frame_sharded"]:
+        want = recorded[row["F"]]
+        lm = row["lm_iteration"]
+        check(lm["by_op"] == comm_model.expected_by_op(want["by_op"])
+              and row["loops"] == want["loops"],
+              f"comm_model F={row['F']}: {lm['by_op']} against "
+              f"{want['by_op']} + {comm_model.NAMED_DIFFERENCE}")
+    check(comm["fleet_layout_zero_data_collectives"],
+          f"comm_model fleet: {comm['fleet_layout_counters']}")
+    with k1_recording() as levels:
+        t1 = comm_model.world1_ms(COMM_FRAMES, "cuda")
+    launches = fused_reduction_level.launches
+    check(launches > 0 and fused_reduction_level_ref.calls == 0,
+          f"comm_model world-1 timing: K1 {launches}, plain "
+          f"{fused_reduction_level_ref.calls}")
+    out = comm_model.predict(comm, t1, card("cuda:0"))
+    return dict(model=out, k1_launches=launches,
+                k1_levels=[[m, t, n] for (m, t), n in sorted(levels.items())],
+                k1_checked=estimator_checks_k1(levels),
+                seconds=time.perf_counter() - t0)
+
+
+def reference_tools_phase() -> dict:
+    """Phase 16a: the last reference tools (see the docstring)."""
+    t0 = time.perf_counter()
+    out = dict(convert=convert_phase(), drift=drift_phase(),
+               comm=comm_phase())
+    out["seconds"] = time.perf_counter() - t0
+    print("reference tools", json.dumps(out), flush=True)
+    print(f"reference tools phase {out['seconds']:.1f} s (convert "
+          f"{out['convert']['seconds']:.1f} s, drift_probe "
+          f"{out['drift']['seconds']:.1f} s, comm_model "
+          f"{out['comm']['seconds']:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
     try:
@@ -4107,6 +4278,7 @@ def main() -> int:
     measured = measurement_phase()
     tools = tools_phase(rows)
     k1_per_iteration.update(tools["sweep"]["k1_per_iteration"])
+    last = reference_tools_phase()
 
     main = next(r for r in rows
                 if (r["m"], r["t"], r["branch"]) == (40, 32, "warm"))
@@ -4123,7 +4295,8 @@ def main() -> int:
                            + est["k1_checked"]
                            + node["paced"]["k1_checked"]
                            + measured["bench"]["k1_checked"]
-                           + measured["online"]["k1_checked"]),
+                           + measured["online"]["k1_checked"]
+                           + last["comm"]["k1_checked"]),
         "ms": main["ms"],
         "kernel_ms": main["ms"],
         "wrapper_ms": main["wrapper_ms"],
@@ -4150,12 +4323,15 @@ def main() -> int:
         "levels_window_scale": {F: r["k1_levels"] for F, r in
                                 tools["sweep"]["rows"].items()},
         "launches_textured_eval": tools["textured"]["launches"]["k1"],
+        "launches_drift_probe": last["drift"]["k1_launches"],
+        "launches_comm_model": last["comm"]["k1_launches"],
+        "levels_comm_model": last["comm"]["k1_levels"],
         "levels_bench": measured["bench"]["k1_levels"],
         "levels_online_window": measured["online"]["k1_levels"],
         "shapes": rows,
         "checked": k1_checked + est["k1_checked"]
         + node["paced"]["k1_checked"] + measured["bench"]["k1_checked"]
-        + measured["online"]["k1_checked"],
+        + measured["online"]["k1_checked"] + last["comm"]["k1_checked"],
         "per_iteration": k1_per_iteration,
         "main_paths": list(paths.values()),
     }, {
@@ -4174,8 +4350,10 @@ def main() -> int:
         "launches_textured_eval": tools["textured"]["launches"]["k2"],
         "shapes_textured_eval": tools["textured"]["k2_shapes"],
         "launches_online_window": measured["online"]["k2_launches"],
+        "launches_convert": last["convert"]["launches"]["k2"],
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows
-                           + train["k2_checked"] + measured["k2_rows"]),
+                           + train["k2_checked"] + measured["k2_rows"]
+                           + last["convert"]["k2_checked"]),
         "ms": k2_main["ms"],
         "cold_ms": k2_main["cold_ms"],
         "plain_ms": k2_main["plain_ms"],
@@ -4183,7 +4361,8 @@ def main() -> int:
         "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"],
         "shapes": k2_rows + measured["k2_rows"],
-        "checked": k2_checked + train["k2_checked"],
+        "checked": k2_checked + train["k2_checked"]
+        + last["convert"]["k2_checked"],
     }, {
         "name": "retrieval_top1",
         "route": "cuda",
@@ -4198,6 +4377,7 @@ def main() -> int:
         "launches_bench": measured["bench"]["k3_launches"],
         "launches_online_window": measured["online"]["k3_launches"],
         "launches_textured_eval": tools["textured"]["launches"]["k3"],
+        "launches_reference_tools": last["convert"]["launches"]["k3"],
         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
         "ms": k3_main["ms"],
         "plain_ms": k3_main["plain_ms"],

@@ -141,7 +141,7 @@ def run_ranks(fn, world: int, *, backend: str, device="cuda", args=(),
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _kernel_counts() -> dict:
+def kernel_counts() -> dict:
     """The three kernels' launch counts and their plain versions' calls in
     this process."""
     from omniswarm_torch.ops.frontend_kernels import (
@@ -173,7 +173,7 @@ def call_each(axis: Axis, calls) -> list:
             raise ValueError(f"{name} is not a function of omniswarm_torch")
         fn = getattr(importlib.import_module(module), func)
         sub.reset_counts()
-        k0 = _kernel_counts()
+        k0 = kernel_counts()
         if sub.device.type == "cuda":
             torch.cuda.synchronize(sub.device)
         t0 = time.perf_counter()
@@ -181,7 +181,7 @@ def call_each(axis: Axis, calls) -> list:
         if sub.device.type == "cuda":
             torch.cuda.synchronize(sub.device)
         seconds = time.perf_counter() - t0
-        k1 = _kernel_counts()
+        k1 = kernel_counts()
         out.append(dict(result=res, counts=sub.counts(), seconds=seconds,
                         kernels={k: k1[k] - k0[k] for k in k1}))
     return out

@@ -5,7 +5,8 @@ Counterpart of ``tools/drone_process.py``. Each process runs one
 visual world's seed) from an ``.npz``, feeds its own measurements and a
 keyframe every 2nd frame, exchanges keyframes, loop edges and PCM inlier
 sets with the peer processes through a ``UdpMulticastBus``, solves once at
-the end and writes its estimate to an ``.npz``.
+the end and writes its estimate and its final solve's poses to an
+``.npz``.
 
     python -m omniswarm_torch.runtime.drone_process --scenario s.npz \\
         --drone-id 0 --out out0.npz [--port 17700] [--step-wall 0.15] \\
@@ -85,6 +86,9 @@ def main(argv=None) -> int:
              cost=np.asarray(out.get("cost", np.nan)),
              estimate=(est.estimate if est.estimate is not None
                        else np.zeros((0,))),
+             # the final solve's poses, whatever its cost
+             final_poses=(est._last_padded_poses[:est._last_num_window]
+                          if out.get("solved") else np.zeros((0,))),
              window_ids=np.asarray(est.window_ids),
              kf_times=np.asarray([kf.t for kf in est.window]),
              loops_found=np.asarray(node.loops_found),

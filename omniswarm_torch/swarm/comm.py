@@ -357,12 +357,16 @@ class LoopNet:
         hdr: HeaderPacket = st["header"]
         lms = st["landmarks"]
         K = hdr.num_landmarks
-        if K == 0 and not lms:
+        if not lms:
+            # no landmark datagram arrived: nothing to verify a loop with
+            # (the reference assembles a (K, 0) descriptor block here, which
+            # its detector cannot pack: a drone process dies on it under a
+            # 5-drone swarm's datagram loss)
             return None
         kmax = max([K] + [i + 1 for i in lms])
         xy = np.zeros((kmax, 2), np.float32)
         p3d = np.zeros((kmax, 3), np.float32)
-        dim = next(iter(lms.values())).desc_q.size if lms else 0
+        dim = next(iter(lms.values())).desc_q.size
         desc = np.zeros((kmax, dim), np.float32)
         valid = np.zeros(kmax, bool)
         for i, pkt in lms.items():

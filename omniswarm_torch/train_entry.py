@@ -23,6 +23,7 @@ import argparse
 import json
 import os
 import sys
+import time
 from typing import Dict
 
 import torch
@@ -179,11 +180,29 @@ def superpoint_main(argv=None) -> dict:
     return out
 
 
+def netvlad_eval(params, arch: int, *, hard: bool, textured: bool = False,
+                 device="cuda") -> dict:
+    """``retrieval_metrics`` of ``params``: easy 64-way, and with ``hard``
+    the 256-way jittered revisit tier (rot 0.5 rad, noise 0.06, zoom
+    0.8-1.25, the query within 35% of the gallery's viewpoint)."""
+    out = {"easy": tnv.retrieval_metrics(params, encoder_version=arch,
+                                         textured=textured, device=device)}
+    if hard:
+        out["hard"] = tnv.retrieval_metrics(
+            params, n_places=256, max_rot=0.5, noise=0.06, scale=(0.8, 1.25),
+            revisit_offset=0.35, encoder_version=arch, textured=textured,
+            device=device)
+    return out
+
+
 def netvlad_main(argv=None) -> dict:
     """Train MobileNetVLAD on synthetic places and save a checkpoint;
     evaluates easy 64-way recall@1 (and, with ``--hard-eval``, the 256-way
     revisit tier). ``--continue-out`` resumes from OUT.resume.npz (f32
-    parameters and Adam's state) or from OUT itself."""
+    parameters and Adam's state) or from OUT itself. ``--compare CKPT``
+    evaluates another checkpoint (e.g. a bundled one) with the same calls.
+    Ends with one JSON line: the card, the training's wall seconds, the
+    recalls and margins, and K1-K3's launches over the run."""
     ap = argparse.ArgumentParser(prog="train_entry netvlad")
     ap.add_argument("--steps", type=int, default=600)
     ap.add_argument("--places", type=int, default=16)
@@ -214,8 +233,15 @@ def netvlad_main(argv=None) -> dict:
                     help="encoder version for fresh training (2 = "
                          "GroupNorm'd deeper encoder); resumed checkpoints "
                          "use their stored version")
+    ap.add_argument("--compare", default=None,
+                    help="a checkpoint evaluated beside the trained one")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    from omniswarm_torch.benchutil import card
+    from omniswarm_torch.parallel.launch import kernel_counts
+
+    k0 = kernel_counts()
+    t0 = time.perf_counter()
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     resume = args.resume
@@ -236,24 +262,32 @@ def netvlad_main(argv=None) -> dict:
         save_every=args.save_every or None, save_path=args.out,
         resume_path=resume_path, encoder_version=arch,
         textured=args.textured, device=args.device)
-    m = tnv.retrieval_metrics(params, encoder_version=arch,
-                              textured=args.textured, device=args.device)
-    print(f"eval(easy 64-way): recall@1 {m['recall_at_1']:.3f} "
-          f"margin {m['mean_margin']:.3f}", flush=True)
-    out = {"params": params, "history": history, "easy": m, "arch": arch,
-           "out": args.out}
+    train_s = time.perf_counter() - t0
+    m = netvlad_eval(params, arch, hard=args.hard_eval,
+                     textured=args.textured, device=args.device)
+    print(f"eval(easy 64-way): recall@1 {m['easy']['recall_at_1']:.3f} "
+          f"margin {m['easy']['mean_margin']:.3f}", flush=True)
     if args.hard_eval:
-        mh = tnv.retrieval_metrics(params, n_places=256, max_rot=0.5,
-                                   noise=0.06, scale=(0.8, 1.25),
-                                   revisit_offset=0.35, encoder_version=arch,
-                                   textured=args.textured,
-                                   device=args.device)
         print(f"eval(hard 256-way revisit): recall@1 "
-              f"{mh['recall_at_1']:.3f} margin {mh['mean_margin']:.3f}",
-              flush=True)
-        out["hard"] = mh
+              f"{m['hard']['recall_at_1']:.3f} margin "
+              f"{m['hard']['mean_margin']:.3f}", flush=True)
+    out = {"params": params, "history": history, **m, "arch": arch,
+           "out": args.out}
     nv.save_netvlad_npz(params, args.out, encoder_version=arch)
     print(f"saved {args.out} (encoder v{arch})", flush=True)
+    if args.compare:
+        c_arch = nv.netvlad_meta(args.compare)["encoder_version"]
+        out["compare"] = dict(ckpt=args.compare, arch=c_arch, **netvlad_eval(
+            read_netvlad(args.compare), c_arch, hard=args.hard_eval,
+            textured=args.textured, device=args.device))
+    k1 = kernel_counts()
+    summary = dict(card=card(args.device), steps=args.steps,
+                   train_seconds=train_s, arch=arch, out=args.out,
+                   **{k: v for k, v in m.items()},
+                   compare={k: v for k, v in out.get("compare", {}).items()},
+                   launches={k: k1[k] - k0[k] for k in k1},
+                   final_loss=history[-1][1] if history else None)
+    print(json.dumps(summary), flush=True)
     return out
 
 

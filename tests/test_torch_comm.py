@@ -7,6 +7,7 @@ proxy's fixed-point packets both ways, the packets LoopNet publishes for a
 keyframe (with their ``nbytes``), the LossyBus drop and delivery stream, and
 the JPEG of the whole-descriptor mode.
 """
+import heapq
 import sys
 from pathlib import Path
 
@@ -216,3 +217,33 @@ def test_jpeg_bytes_equal(rng):
     assert tcomm.encode_image(img, quality=50) == wire
     np.testing.assert_array_equal(tcomm.decode_image(wire),
                                   jcomm.decode_image(wire))
+
+
+def test_loopnet_drops_a_keyframe_without_landmarks():
+    """A header whose landmark datagrams were all lost gives no keyframe
+    (the reference assembles one with a (K, 0) descriptor block, on which
+    its detector fails); with one landmark left, both packages assemble
+    the same keyframe."""
+    kf = ref_comm_tests.make_kf(drone=1, frame=3, seed=5)
+    outs = {}
+    for name, mod in (("jax", jcomm), ("port", tcomm)):
+        for keep in (0, 1):
+            bus = mod.LossyBus()
+            got = []
+            rx = mod.LoopNet(bus, 0, on_keyframe=got.append)
+            tx = mod.LoopNet(bus, 1)
+            tx.broadcast_keyframe(mod.KeyframeData(**kf.__dict__), 0.0)
+            lms = [m for m in bus._queue
+                   if m[3] == mod.CHANNEL_VIOKF_LANDMARKS]
+            bus._queue = [m for m in bus._queue if m not in lms[keep:]]
+            heapq.heapify(bus._queue)
+            bus.step(1.0)
+            rx.scan_recv_packets(1.0)        # first seen
+            rx.scan_recv_packets(100.0)      # expired
+            outs[name, keep] = got
+    assert outs["port", 0] == []
+    assert len(outs["jax", 0]) == 1
+    assert outs["jax", 0][0].local_desc.shape[1] == 0
+    (a,), (b,) = outs["jax", 1], outs["port", 1]
+    np.testing.assert_array_equal(a.local_desc, b.local_desc)
+    np.testing.assert_array_equal(a.valid, b.valid)

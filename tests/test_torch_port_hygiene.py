@@ -206,6 +206,7 @@ def test_parallel_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_node_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from omniswarm_torch import node_entry
     from omniswarm_torch.node_entry import paced_sessions
     from omniswarm_torch.runtime import drone_process, run_node
 
@@ -215,7 +216,9 @@ def test_node_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: drone_process.main([
                      "--scenario", str(tmp_path / "none.npz"),
                      "--drone-id", "0", "--out", str(tmp_path / "o.npz")]),
-                 paced_sessions):
+                 paced_sessions,
+                 lambda: node_entry.main(["--swarm", "2", "3", "--out-dir",
+                                          str(tmp_path / "swarm")])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -258,12 +261,15 @@ def test_measurement_entry_points_raise_without_cuda(monkeypatch):
 TOOLS = {"window_scale_sweep": [], "bench_dense_loops": [],
          "profile_fscale": [], "profile_f100": [], "profile_solver": [],
          "profile_fleet": [], "replay_eval": ["--logs", "a.csv:0"],
-         "eval_superpoint_textured": ["--ckpt", "a=b.npz"]}
-# the host-only tools (the bus tools, the PCA fit), on UDP port 17933
+         "eval_superpoint_textured": ["--ckpt", "a=b.npz"],
+         "drift_probe": ["."], "comm_model": []}
+# the host-only tools (the bus tools, the PCA fit, the weight converter),
+# on UDP port 17933
 HOST_TOOLS = {"bus_spy": ["--duration", "0", "--port", "17933"],
               "network_tester": ["--drone-id", "0", "--duration", "0",
                                  "--port", "17933"],
-              "fit_pca": ["--dim", "4"]}
+              "fit_pca": ["--dim", "4"],
+              "convert_superpoint": ["--pth", "sp.pth"]}
 
 
 @pytest.mark.parametrize("name", sorted(TOOLS))
@@ -290,6 +296,10 @@ def test_host_tools_run_without_cuda(monkeypatch, tmp_path, name):
         desc = tmp_path / "d.npy"
         np.save(desc, np.random.default_rng(0).normal(size=(32, 8)))
         args = ["--desc", str(desc), *args]
+    if name == "convert_superpoint":
+        pth = tmp_path / "sp.pth"
+        torch.save(tool.seeded_twin(0).state_dict(), pth)
+        args = ["--pth", str(pth), "--out", str(tmp_path / "sp.npz")]
     with pytest.raises(SystemExit):
         tool.main([*args, "--device", "cpu"])
     assert tool.main(args) is not None

@@ -343,3 +343,28 @@ def test_netvlad_main_writes_a_reference_checkpoint(tmp_path):
     np.testing.assert_array_equal(
         _np(flax["params/vlad/centroids"]),
         res["params"]["vlad.centroids"].half().float().numpy())
+
+
+def test_netvlad_main_compares_a_checkpoint(tmp_path, capsys):
+    """``--compare`` evaluates another checkpoint with the same calls, and
+    the run ends with one JSON line of its numbers and K1-K3's launches
+    (none on this path)."""
+    import json
+
+    out = tmp_path / "nv.npz"
+    bundled = "omniswarm_tpu/models/weights/netvlad_v2_revisit.npz"
+    res = train_entry.netvlad_main([
+        "--steps", "1", "--places", "2", "--pool", "3", "--arch", "2",
+        "--save-every", "0", "--device", "cpu", "--out", str(out),
+        "--compare", bundled])
+    cmp = res["compare"]
+    assert cmp["ckpt"] == bundled and cmp["arch"] == 2
+    want = tnv.retrieval_metrics(train_entry.read_netvlad(bundled),
+                                 encoder_version=2, device="cpu")
+    assert cmp["easy"] == want
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["card"] == "cpu" and line["steps"] == 1
+    assert line["compare"]["easy"] == want
+    assert line["launches"] == dict(k1=0, k2=0, k3=0, k1_plain=0,
+                                    k2_plain=0, k3_plain=0)
+    assert line["train_seconds"] > 0
