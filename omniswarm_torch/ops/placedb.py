@@ -17,6 +17,11 @@ device read. The batched ``query2_add_batch`` and
 ``query2_add_payload_batch`` (the loop detector's tick) therefore run all
 of a batch's queries before any of its inserts, which is the reference's
 order too: batch members do not see each other.
+
+``query_batch`` and ``add`` carry ``torch.profiler`` ranges,
+``placedb/query`` (the mask build and the K3 launch) and ``placedb/add``
+(the row and metadata writes); they nest inside a caller's ``frontend/``
+or ``detector/`` range without taking its kernels from it.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from omniswarm_torch.core.device import resolve_device
 from omniswarm_torch.ops.frontend_kernels import retrieval_top1
@@ -53,11 +59,12 @@ def make_placedb(capacity: int, dim: int, device="cuda",
 def add(db: PlaceDB, desc: torch.Tensor, drone_id: int,
         frame_id: int) -> PlaceDB:
     """Insert one descriptor at the ring's next slot (in place)."""
-    slot = db.cursor % db.desc.shape[0]
-    db.desc[slot] = desc.to(db.desc.dtype)
-    db.drone_id[slot] = int(drone_id)
-    db.frame_id[slot] = int(frame_id)
-    db.valid[slot] = True
+    with record_function("placedb/add"):
+        slot = db.cursor % db.desc.shape[0]
+        db.desc[slot] = desc.to(db.desc.dtype)
+        db.drone_id[slot] = int(drone_id)
+        db.frame_id[slot] = int(frame_id)
+        db.valid[slot] = True
     return db._replace(cursor=db.cursor + 1)
 
 
@@ -107,8 +114,9 @@ def query_batch(db: PlaceDB, desc: torch.Tensor, query_drone, query_frame,
                 *, match_index_dist=10) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched retrieval through one K3 launch: desc (B, D), query_drone and
     query_frame (B,) -> (best_idx (B,), best_sim (B,))."""
-    mask = _usable(db, query_drone, query_frame, match_index_dist)
-    return retrieval_top1(db.desc, desc.contiguous(), mask)
+    with record_function("placedb/query"):
+        mask = _usable(db, query_drone, query_frame, match_index_dist)
+        return retrieval_top1(db.desc, desc.contiguous(), mask)
 
 
 def query_topk(db: PlaceDB, desc: torch.Tensor, query_drone, query_frame, *,

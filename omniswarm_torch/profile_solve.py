@@ -1,7 +1,8 @@
 """Where the time of the flagship LM solve and of the front-end goes on the GPU.
 
     python -m omniswarm_torch.profile_solve [--frames 100 1024] [--sweep]
-                                            [--frontend] [--estimator] [--demo]
+                                            [--frontend [--chrome-trace PATH]]
+                                            [--estimator] [--demo]
 
 Builds the seed-0, 5-drone problem (with ``--sweep`` the window-scale
 sweep's: seed 1, ``loop_every=128``), runs one warm-up solve, then traces
@@ -17,7 +18,14 @@ drones x 15 keyframe steps of 40 views at 400 x 208, rendered before the
 trace, after a 2-step warm-up): wall and device-busy ms per step, the idle
 share, device ms per stage (the ``frontend/*`` profiler ranges: SuperPoint
 convolutions, keypoints with K2 and the sort, descriptor sampling and PCA,
-NetVLAD, matching, triangulation, retrieval with K3), and the top kernels.
+NetVLAD, matching, triangulation, retrieval with K3, and the copies of the
+views and outputs in ``frontend/upload`` and ``frontend/download``), the
+device's idle ms per step by what the host was doing, and the top kernels.
+An idle gap takes the name of the innermost host op at its midpoint, as the
+benchmark labels it: the host phases ``frontend/stage`` (gathering and
+stacking the views), ``frontend/merge`` (the casts and the per-drone
+merge), ``placedb/query`` and ``placedb/add``, or a torch op, or ``host
+between ops``. ``--chrome-trace PATH`` writes the traced timeline there.
 
 ``--estimator`` runs ``estimator_entry``'s session twice, held
 (``acpt_cost=1000``) and deployed (100), and traces the last solve of each:
@@ -39,6 +47,7 @@ the idle share, and the kernels that take most of a tick.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import contextlib
 import json
@@ -116,9 +125,36 @@ def _device_events(prof):
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         annotation = evt.is_user_annotation or evt.name.startswith(
-            ("frontend/", "detector/"))
+            ("frontend/", "detector/", "placedb/"))
         (annotations if annotation else kernels).append(evt)
     return kernels, annotations
+
+
+# CUDA runtime and driver calls: the host op that made them is the label
+_RUNTIME_PREFIXES = ("cuda", "cu", "Activity Buffer")
+
+
+def _idle_by_host(kernels, host):
+    """Device idle us between the ``(start, end)`` intervals ``kernels``,
+    summed by the innermost of the ``(name, start, end)`` host ops
+    ``host`` that holds each gap's midpoint (``host between ops`` where
+    none does; of the 400 ops that started last before it), largest
+    first: the benchmark's rule, without its cut to the 10 largest."""
+    gaps, end = [], None
+    for s, e in sorted(kernels):
+        if end is not None and s > end:
+            gaps.append((end, s))
+        end = e if end is None else max(end, e)
+    host = sorted(host, key=lambda h: (h[1], -h[2]))
+    starts = [h[1] for h in host]
+    per = collections.defaultdict(float)
+    for g0, g1 in gaps:
+        mid = 0.5 * (g0 + g1)
+        k = bisect.bisect_right(starts, mid)
+        label = next((name for name, s, e in reversed(host[max(0, k - 400):k])
+                      if s <= mid < e), "host between ops")
+        per[label] += g1 - g0
+    return sorted(per.items(), key=lambda kv: -kv[1])
 
 
 def _kernel_table(prof, n: int, top: int, unit: str):
@@ -139,7 +175,7 @@ def _kernel_table(prof, n: int, top: int, unit: str):
         for name, (us, cnt) in kernels], per_kernel
 
 
-def profile_frontend(top: int = 15) -> dict:
+def profile_frontend(top: int = 15, chrome_trace=None) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -171,6 +207,14 @@ def profile_frontend(top: int = 15) -> dict:
         name = next((nm for s0, e0, nm in spans if s0 <= start < e0),
                     "outside any stage")
         stages[name] += end - start
+    cpu = torch.autograd.DeviceType.CPU
+    idle = _idle_by_host(
+        [(k.time_range.start, k.time_range.end) for k in kernels],
+        [(e.name, e.time_range.start, e.time_range.end)
+         for e in prof.events()
+         if e.device_type == cpu and not e.name.startswith(_RUNTIME_PREFIXES)])
+    if chrome_trace:
+        prof.export_chrome_trace(str(chrome_trace))
     named = {"K2 grid_nms_kernel": ("grid_nms_kernel",),
              "K3 retrieval_kernel": ("retrieval_kernel",),
              "sort kernels (top-K)": ("sort", "Sort")}
@@ -184,6 +228,7 @@ def profile_frontend(top: int = 15) -> dict:
         "kernel_launches_per_step": launches / n,
         "stage_device_ms_per_step": {
             k: v / 1e3 / n for k, v in sorted(stages.items())},
+        "idle_ms_per_step_by_host_op": {k: v / 1e3 / n for k, v in idle},
         "kernel_device_ms_per_step": {
             label: sum(us for name, (us, _c) in per_kernel.items()
                        if any(p in name for p in pats)) / 1e3 / n
@@ -331,6 +376,9 @@ def main() -> None:
                          "loop_every=128)")
     ap.add_argument("--frontend", action="store_true",
                     help="profile the front-end path instead of the solve")
+    ap.add_argument("--chrome-trace", metavar="PATH",
+                    help="with --frontend: write the traced timeline to PATH "
+                         "(Chrome trace JSON)")
     ap.add_argument("--estimator", action="store_true",
                     help="profile two estimator solves instead")
     ap.add_argument("--demo", action="store_true",
@@ -340,7 +388,8 @@ def main() -> None:
         print(json.dumps(profile_demo()), flush=True)
         return
     if args.frontend:
-        print(json.dumps(profile_frontend()), flush=True)
+        print(json.dumps(profile_frontend(chrome_trace=args.chrome_trace)),
+              flush=True)
         return
     if args.estimator:
         for row in profile_estimator():

@@ -19,6 +19,15 @@ Left out of the reference's LoopCam: the per-pair ``_extract_batch_fallback``
 Intrinsics that carry a generic camera model (``ops.camera.CameraBearings``
 around a pinhole, MEI or Kannala-Brandt model, the reference's :125-134)
 lift the keypoints with that model's ``lift`` in the fused extraction.
+
+Besides the device stages' ``torch.profiler`` ranges (``frontend/netvlad``,
+``frontend/matching``, ``frontend/triangulation``), a batch's host phases
+carry ranges: ``frontend/stage`` (gathering, stacking and concatenating the
+views), ``frontend/upload`` (the views' copy to the device),
+``frontend/download`` (the outputs' copies to the host) and
+``frontend/merge`` (the host casts and the per-drone merge). Stage and
+merge hold host numpy only, no torch op, so a profile's idle device gaps
+inside them carry their names.
 """
 from __future__ import annotations
 
@@ -114,10 +123,14 @@ class LoopCam:
     def _extract_device(self, lefts: np.ndarray, rights: np.ndarray):
         """The fused batch on the device; f16 outputs (and bool masks)."""
         B = lefts.shape[0]
-        wire = np.uint8 if lefts.dtype == np.uint8 else np.float32
-        imgs = torch.from_numpy(np.ascontiguousarray(
-            np.concatenate([lefts, rights], 0).astype(wire, copy=False)))
-        imgs = imgs.to(self.device)[:, None]
+        with record_function("frontend/stage"):
+            wire = np.uint8 if lefts.dtype == np.uint8 else np.float32
+            imgs = np.ascontiguousarray(
+                np.concatenate([lefts, rights], 0).astype(wire, copy=False))
+        imgs = torch.from_numpy(imgs)       # a torch op: outside the stage
+        with record_function("frontend/upload"):
+            imgs = imgs.to(self.device)
+        imgs = imgs[:, None]
         if imgs.dtype == torch.uint8:
             imgs = imgs.to(torch.float32) * (1.0 / 255.0)
         xy, _scores, desc, valid = self._kp(imgs)
@@ -153,14 +166,16 @@ class LoopCam:
         """
         with highp():
             out = self._extract_device(np.asarray(lefts), np.asarray(rights))
-        xy, desc, gdesc, pts_body, ok, kp_valid = (t.cpu().numpy()
-                                                   for t in out)
-        self.last_kp_valid = kp_valid
-        gdesc = gdesc.astype(np.float32)
-        gdesc = gdesc / np.maximum(
-            np.linalg.norm(gdesc, axis=-1, keepdims=True), 1e-8)
-        return (xy.astype(np.float32), desc.astype(np.float32),
-                gdesc, pts_body.astype(np.float32), ok.astype(bool))
+        with record_function("frontend/download"):
+            xy, desc, gdesc, pts_body, ok, kp_valid = (t.cpu().numpy()
+                                                       for t in out)
+        with record_function("frontend/merge"):
+            self.last_kp_valid = kp_valid
+            gdesc = gdesc.astype(np.float32)
+            gdesc = gdesc / np.maximum(
+                np.linalg.norm(gdesc, axis=-1, keepdims=True), 1e-8)
+            return (xy.astype(np.float32), desc.astype(np.float32),
+                    gdesc, pts_body.astype(np.float32), ok.astype(bool))
 
     def on_stereo_frame(self, drone_id: int, frame_id: int, t: float,
                         vio_pose: np.ndarray, left: np.ndarray,
@@ -250,37 +265,40 @@ class OmniLoopCam(LoopCam):
         per-drone KeyframeData.
         """
         view_yaws = self.VIEW_YAWS if view_yaws is None else view_yaws
-        lefts, rights, owners = [], [], []
-        for e, (_d, _f, _t, _pose, stereo_pairs) in enumerate(entries):
-            for v, pair in enumerate(stereo_pairs):
-                if pair is None:
-                    continue
-                lefts.append(np.asarray(pair[0]))
-                rights.append(np.asarray(pair[1]))
-                owners.append((e, v))
-        if not lefts:
-            raise ValueError("no valid fisheye views")
-        xy, desc, gdesc, pts_body, ok = self.extract_stereo_batch(
-            np.stack(lefts), np.stack(rights))
+        with record_function("frontend/stage"):
+            lefts, rights, owners = [], [], []
+            for e, (_d, _f, _t, _pose, stereo_pairs) in enumerate(entries):
+                for v, pair in enumerate(stereo_pairs):
+                    if pair is None:
+                        continue
+                    lefts.append(np.asarray(pair[0]))
+                    rights.append(np.asarray(pair[1]))
+                    owners.append((e, v))
+            if not lefts:
+                raise ValueError("no valid fisheye views")
+            lefts, rights = np.stack(lefts), np.stack(rights)
+        xy, desc, gdesc, pts_body, ok = self.extract_stereo_batch(lefts,
+                                                                  rights)
 
         out = []
-        for e, (drone_id, frame_id, t, vio_pose, _pairs) in \
-                enumerate(entries):
-            rows = [i for i, (eo, _v) in enumerate(owners) if eo == e]
-            if not rows:
-                raise ValueError(f"entry {e}: no valid fisheye views")
-            kp_xy = np.concatenate([xy[i] for i in rows], 0)
-            lms = np.concatenate(
-                [yaw_rotate_np(view_yaws[owners[i][1]], pts_body[i])
-                 for i in rows], 0)
-            descs = np.concatenate([desc[i] for i in rows], 0)
-            valid = np.concatenate([ok[i] for i in rows], 0)
-            gd = np.mean([gdesc[i] for i in rows], axis=0)
-            gd = gd / max(np.linalg.norm(gd), 1e-8)
-            out.append(KeyframeData(
-                drone_id=drone_id, frame_id=frame_id, t=t,
-                pose=np.asarray(vio_pose, np.float32),
-                global_desc=gd.astype(np.float32), kp_xy=kp_xy,
-                landmarks_3d=lms.astype(np.float32), local_desc=descs,
-                valid=valid))
+        with record_function("frontend/merge"):
+            for e, (drone_id, frame_id, t, vio_pose, _pairs) in \
+                    enumerate(entries):
+                rows = [i for i, (eo, _v) in enumerate(owners) if eo == e]
+                if not rows:
+                    raise ValueError(f"entry {e}: no valid fisheye views")
+                kp_xy = np.concatenate([xy[i] for i in rows], 0)
+                lms = np.concatenate(
+                    [yaw_rotate_np(view_yaws[owners[i][1]], pts_body[i])
+                     for i in rows], 0)
+                descs = np.concatenate([desc[i] for i in rows], 0)
+                valid = np.concatenate([ok[i] for i in rows], 0)
+                gd = np.mean([gdesc[i] for i in rows], axis=0)
+                gd = gd / max(np.linalg.norm(gd), 1e-8)
+                out.append(KeyframeData(
+                    drone_id=drone_id, frame_id=frame_id, t=t,
+                    pose=np.asarray(vio_pose, np.float32),
+                    global_desc=gd.astype(np.float32), kp_xy=kp_xy,
+                    landmarks_3d=lms.astype(np.float32), local_desc=descs,
+                    valid=valid))
         return out
