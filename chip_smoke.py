@@ -68,10 +68,18 @@ non-zero without printing a result.
    an all-masked query: equal indices, the lower row of each tie,
    (0, -inf) for the masked query, similarities within 1e-5 relative. The
    same timings (library: argmax of the masked matmul).
+6b. Conv epilogue phase: the kernel of SuperPoint's convolution epilogues
+   (bias, ReLU, 2 x 2 max-pool) bit-equal to its plain version at the main
+   path's four distinct cases at 80 views (EPILOGUE_CASES), and a few
+   CUDA-event windows each of the kernel, the plain version and the library
+   yardstick (the three PyTorch ops the path ran before: the in-place bias
+   add of PyTorch's cuDNN route, F.relu, F.max_pool2d), beside the bytes
+   bound. The edge cases are tests/test_torch_conv_epilogue.py's.
 7. Front-end path: omniswarm_torch.frontend_entry.frontend_entry() at
    full size (5 drones x 15 keyframe steps of 40 views at 400 x 208; its
    views rendered once for this phase and phase 9a's image demo). No
-   plain version may run; K2 and K3 launch 15 times each. Held against the
+   plain version may run; K2 and K3 launch 15 times each, the conv
+   epilogue 12 times a step. Held against the
    JAX package's CPU anchors: each keyframe's landmark count, keypoint sums,
    inverse-range landmark sums and global-descriptor projection within
    frontend_entry.checksum_faults's tolerances, at least 95% of the 75
@@ -386,6 +394,12 @@ SOLVER_ANCHORS = dict(
                    relative_ate=0.059811932548156664)),
 )
 K2_D10_SHAPE = (80, 208, 400)   # a keyframe step of 10 drones (phase 13a)
+# phase 6b: (conv output shape, relu, pool), the main path's distinct
+# epilogue cases at 80 views of 208 x 400 (conv1a, conv1b, conv3b, convPb)
+EPILOGUE_CASES = (((80, 64, 208, 400), True, False),
+                  ((80, 64, 208, 400), True, True),
+                  ((80, 128, 52, 100), True, True),
+                  ((80, 65, 26, 50), False, False))
 # K2 edge cases, each checked bit-exact against the plain version: (shape,
 # r, kind, 16-byte aligned). NaN cells, r = 0 and 16, W % 4 != 0, a map
 # smaller than its window, views 4 bytes off 16 (4-byte loads), maps wider
@@ -2265,28 +2279,82 @@ def k3_phase():
     return rows
 
 
+def epilogue_phase():
+    """Phase 6b: the conv epilogue kernel at EPILOGUE_CASES (see the
+    docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    from omniswarm_torch import kernels
+    from omniswarm_torch.benchutil import bound, time_ms
+    from omniswarm_torch.ops.frontend_kernels import conv_epilogue_ref
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for shape, relu, pool in EPILOGUE_CASES:
+        x = torch.randn(shape, generator=g, device="cuda")
+        b = 0.5 * torch.randn(shape[1], generator=g, device="cuda")
+        want = conv_epilogue_ref(x, b, relu, pool)
+        got = kernels.conv_epilogue(x.clone(), b, relu, pool)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"conv epilogue disagrees at {shape} "
+              f"relu={relu} pool={pool}: {int((got != want).sum())} cells")
+        width = kernels.conv_epilogue_vector_width(x, got, pool)
+        del got, want
+        b_ms, by = bound(4 * x.numel() * (1.25 if pool else 2), 0)
+        b4 = b.view(1, -1, 1, 1)
+
+        def library():
+            y = x.add_(b4)              # the cuDNN route's bias add
+            y = F.relu(y) if relu else y
+            return F.max_pool2d(y, 2, 2) if pool else y
+
+        # in place without the pool: x drifts by the bias a call, which
+        # times the same work
+        few = dict(reps=5, calls=10, warmup=2)
+        row = dict(shape=list(shape), relu=relu, pool=pool,
+                   vector_width=width,
+                   ms=time_ms(lambda: kernels.conv_epilogue(x, b, relu, pool),
+                              **few),
+                   plain_ms=time_ms(lambda: conv_epilogue_ref(x, b, relu,
+                                                              pool), **few),
+                   library_ms=time_ms(library, **few),
+                   bound_ms=b_ms, bound_by=by)
+        del x
+        print("kernel conv_epilogue", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def frontend_phase(prep):
     from omniswarm_torch.frontend_entry import (
         checksum_faults, frontend_entry, keyframe_checksums, summary)
     from omniswarm_torch.ops.frontend_kernels import (
-        grid_nms, grid_nms_ref, retrieval_top1, retrieval_top1_ref)
+        conv_epilogue, conv_epilogue_ref, grid_nms, grid_nms_ref,
+        retrieval_top1, retrieval_top1_ref)
 
-    grid_nms.launches = retrieval_top1.launches = 0
+    grid_nms.launches = retrieval_top1.launches = conv_epilogue.launches = 0
     grid_nms_ref.calls = retrieval_top1_ref.calls = 0
+    conv_epilogue_ref.calls = 0
     res = frontend_entry(device="cuda", prep=prep)
     k2, k3 = grid_nms.launches, retrieval_top1.launches
+    epilogues = conv_epilogue.launches
     out = summary(res)
     same = int((res.top1_idx == np.asarray(FE_ANCHORS["top1_idx"])).sum())
     faults, diffs = checksum_faults(keyframe_checksums(res.keyframes),
                                     FE_ANCHORS, 400, 208)
-    out.update(k2_launches=k2, k3_launches=k3, top1_idx_equal=same,
-               anchor_diffs=diffs,
+    out.update(k2_launches=k2, k3_launches=k3, epilogue_launches=epilogues,
+               top1_idx_equal=same, anchor_diffs=diffs,
                step_ms=[round(float(v), 3) for v in res.step_ms])
     print("frontend path", json.dumps(out), flush=True)
-    check(grid_nms_ref.calls == 0 and retrieval_top1_ref.calls == 0,
+    check(grid_nms_ref.calls == 0 and retrieval_top1_ref.calls == 0
+          and conv_epilogue_ref.calls == 0,
           "a plain front-end kernel version ran on the card path")
     check(k2 == FE_STEPS and k3 == FE_STEPS,
           f"K2/K3 launched {k2}/{k3} times, expected {FE_STEPS} each")
+    check(epilogues == 12 * FE_STEPS,
+          f"the conv epilogue launched {epilogues} times, expected "
+          f"{12 * FE_STEPS}")
     check(len(res.keyframes) == 5 * FE_STEPS,
           f"{len(res.keyframes)} keyframes")
     for kf in res.keyframes:
@@ -4243,6 +4311,10 @@ def main() -> int:
     k2_rows, k2_checked = k2_phase()
     k3_rows = k3_phase()
     print(f"K2/K3 phases {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    epilogue_rows = epilogue_phase()
+    print(f"conv epilogue phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
     from omniswarm_torch.frontend_entry import prepare
 
     t0 = time.perf_counter()
@@ -4386,6 +4458,13 @@ def main() -> int:
         "library_ms": k3_main["library_ms"],
         "shapes": k3_rows,
         "frontend_path": fe,
+    }, {
+        "name": "conv_epilogue",
+        "route": "cuda",
+        "source": "omniswarm_torch/csrc/conv_epilogue.cu",
+        "replaces": None,
+        "launches": fe["epilogue_launches"],
+        "shapes": epilogue_rows,
     }]}
     print("solver paths", json.dumps(solver), flush=True)
     print(f"chip_smoke {time.perf_counter() - start:.1f} s", flush=True)

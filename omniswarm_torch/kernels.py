@@ -31,7 +31,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 SOURCES = {name: PKG_DIR / "csrc" / f"{name}.cu"
-           for name in ("fused_level", "grid_nms", "retrieval_top1")}
+           for name in ("fused_level", "grid_nms", "retrieval_top1",
+                        "conv_epilogue")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 FUSED_LEVEL_MAX_M = 80       # the reference never packs wider (dense.py:1101)
@@ -128,6 +129,12 @@ def _load(name: str) -> ctypes.CDLL:
             fn.restype = i32
             lib.retrieval_top1_blocks.argtypes = [i32]
             lib.retrieval_top1_blocks.restype = i32
+        elif name == "conv_epilogue":
+            fn = lib.conv_epilogue_launch
+            fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+            fn.restype = i32
+            lib.conv_epilogue_vector_width.argtypes = [ptr, ptr, i32, i32, i32]
+            lib.conv_epilogue_vector_width.restype = i32
         _libs[name] = lib
     return lib
 
@@ -288,3 +295,48 @@ def retrieval_top1(db: torch.Tensor, query: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"retrieval_top1 launch failed: CUDA error {err}")
     return best_idx, best_sim
+
+
+def conv_epilogue(x: torch.Tensor, bias: torch.Tensor, relu: bool,
+                  pool: bool) -> torch.Tensor:
+    """Launch csrc/conv_epilogue.cu on a convolution's output.
+
+    x (N, C, H, W) and bias (C,), f32, contiguous, on one CUDA device.
+    Returns ``x + bias`` per channel, then the ReLU if ``relu``, then the
+    2 x 2 stride-2 max-pool if ``pool`` (which needs ``relu``, H and W >= 2,
+    and floors): without the pool the result is written into ``x``, which
+    is returned; with it into a new (N, C, H // 2, W // 2) tensor.
+    """
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, C, H, W), got {tuple(x.shape)}")
+    N, C, H, W = x.shape
+    if min(N, C, H, W) < 1:
+        raise ValueError(f"x has an empty shape {tuple(x.shape)}")
+    if pool and not relu:
+        raise ValueError("the kernel pools only after the ReLU")
+    if pool and (H < 2 or W < 2):
+        raise ValueError(f"a 2 x 2 pool of {H} x {W} maps is empty")
+    _check_blocks("x", x, (N, C, H, W))
+    _check_blocks("bias", bias, (C,))
+    if x.device != bias.device:
+        raise ValueError("x and bias must be on one device")
+    lib = _load("conv_epilogue")
+    out = (torch.empty((N, C, H // 2, W // 2), dtype=x.dtype, device=x.device)
+           if pool else x)
+    with torch.cuda.device(x.device):
+        err = lib.conv_epilogue_launch(x.data_ptr(), bias.data_ptr(),
+                                       out.data_ptr(), N, C, H, W, int(relu),
+                                       int(pool), _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"conv_epilogue launch failed: CUDA error {err}")
+    return out
+
+
+def conv_epilogue_vector_width(x: torch.Tensor, out: torch.Tensor,
+                               pool: bool) -> int:
+    """Input columns a thread of csrc/conv_epilogue.cu takes a row for this
+    input and output: 4 (16-byte loads) when H * W % 4 == 0 (with the pool:
+    W % 4 == 0) and the pointers line up, else 1."""
+    H, W = x.shape[-2:]
+    return _load("conv_epilogue").conv_epilogue_vector_width(
+        x.data_ptr(), out.data_ptr(), H, W, int(pool))

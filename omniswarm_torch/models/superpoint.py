@@ -19,6 +19,13 @@ pool runs in bf16, and the detector logits and the descriptor head are cast
 back to f32 (the reference's :62 and :69), so the heat map that reaches
 K2 is f32. The weights stay f32 in the module.
 
+f32 inference on the card (``fused_epilogue``: autograd off) convolves
+without the bias and runs each convolution's bias, ReLU and 2 x 2 pool as
+one launch of ``conv_epilogue`` (csrc/conv_epilogue.cu), 12 a forward, bit
+for bit what the PyTorch ops give (PyTorch's cuDNN route adds the bias
+after the convolution too). Training, the bf16 trunk and the CPU run the
+PyTorch ops.
+
 For training (``models/train_superpoint.py``): ``forward(return_logits=True)``
 adds the raw detector logits, ``init_superpoint`` draws Flax's default
 initialisation, and ``save_flax_npz`` / ``load_params_npz`` write the
@@ -36,6 +43,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from omniswarm_torch.core.device import resolve_device
+from omniswarm_torch.ops.frontend_kernels import conv_epilogue
 from omniswarm_torch.ops.keypoints import (
     bilinear_sample_descriptors,
     extract_keypoints,
@@ -69,6 +77,15 @@ class CastConv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+def fused_epilogue(x: torch.Tensor) -> bool:
+    """Whether ``SuperPoint.forward`` runs its convolutions' epilogues
+    through the ``conv_epilogue`` kernel on this input: f32 on the card
+    with autograd off (the kernel has no backward; the bf16 trunk and the
+    CPU keep the PyTorch ops)."""
+    return (x.is_cuda and x.dtype == torch.float32
+            and not torch.is_grad_enabled())
+
+
 class SuperPoint(nn.Module):
     """images (B, 1, H, W) in [0, 1] -> (heat (B, H, W),
     desc (B, H/8, W/8, 256)), both f32 for either ``dtype`` (the trunk's);
@@ -81,27 +98,43 @@ class SuperPoint(nn.Module):
         for name, cin, cout, k in _CONVS:
             self.add_module(name, CastConv2d(cin, cout, k, padding=k // 2))
 
+    def _conv(self, name: str, x: torch.Tensor, fused: bool,
+              relu: bool = True, pool: bool = False) -> torch.Tensor:
+        """Convolution ``name``, then ReLU and 2 x 2 max-pool as asked:
+        ``fused``, the convolution without its bias and one
+        ``conv_epilogue`` launch for the rest; else the three PyTorch ops."""
+        conv = getattr(self, name)
+        if fused:
+            return conv_epilogue(conv._conv_forward(x, conv.weight, None),
+                                 conv.bias, relu, pool)
+        x = conv(x)
+        if relu:
+            x = F.relu(x)
+        return F.max_pool2d(x, 2, 2) if pool else x
+
     def forward(self, images: torch.Tensor, return_logits: bool = False):
         """(heat, desc) or, with ``return_logits``, (heat, desc, logits)
         where logits (B, H/8, W/8, 65) are the raw detector logits,
         channels-last as the reference returns them (a view)."""
         x = images.to(self.dtype)
+        fused = fused_epilogue(x)
         for a, b in (("conv1a", "conv1b"), ("conv2a", "conv2b"),
                      ("conv3a", "conv3b")):
-            x = F.relu(getattr(self, a)(x))
-            x = F.relu(getattr(self, b)(x))
-            x = F.max_pool2d(x, 2, 2)
-        x = F.relu(self.conv4a(x))
-        x = F.relu(self.conv4b(x))
+            x = self._conv(a, x, fused)
+            x = self._conv(b, x, fused, pool=True)
+        x = self._conv("conv4a", x, fused)
+        x = self._conv("conv4b", x, fused)
 
-        logits = self.convPb(F.relu(self.convPa(x))).float()  # (B, 65, Hc, Wc)
+        logits = self._conv("convPb", self._conv("convPa", x, fused), fused,
+                            relu=False).float()          # (B, 65, Hc, Wc)
         semi = torch.softmax(logits, dim=1)[:, :64]
         B, _, Hc, Wc = semi.shape
         # depth-to-space: channel i*8 + j -> pixel (8 hc + i, 8 wc + j)
         heat = semi.reshape(B, 8, 8, Hc, Wc).permute(0, 3, 1, 4, 2)
         heat = heat.reshape(B, Hc * 8, Wc * 8)
 
-        desc = self.convDb(F.relu(self.convDa(x))).float()
+        desc = self._conv("convDb", self._conv("convDa", x, fused), fused,
+                          relu=False).float()
         desc = _unit(desc, dim=1).permute(0, 2, 3, 1)
         if return_logits:
             return heat, desc, logits.permute(0, 2, 3, 1)

@@ -1,4 +1,4 @@
-"""The front-end's two hand-written kernels and their plain versions.
+"""The front-end's hand-written kernels and their plain versions.
 
 Counterpart of ``omniswarm_tpu/ops/pallas_kernels.py``:
 
@@ -7,6 +7,9 @@ Counterpart of ``omniswarm_tpu/ops/pallas_kernels.py``:
   csrc/grid_nms.cu.
 - ``retrieval_top1`` (K3, replaces ``retrieval_top1_pallas``): Q masked
   top-1 searches of an (N, D) global-descriptor DB; csrc/retrieval_top1.cu.
+- ``conv_epilogue`` (replaces no TPU kernel: XLA fuses it there): bias,
+  ReLU and 2 x 2 max-pool of a SuperPoint convolution's output in one pass;
+  csrc/conv_epilogue.cu.
 
 A CUDA tensor goes to the hand-written kernel (through
 ``omniswarm_torch.kernels``) and a CPU tensor to the plain version
@@ -97,3 +100,41 @@ def retrieval_top1(db: torch.Tensor, query: torch.Tensor,
 
 
 retrieval_top1.launches = 0
+
+
+def conv_epilogue_ref(x: torch.Tensor, bias: torch.Tensor, relu: bool,
+                      pool: bool) -> torch.Tensor:
+    """Plain epilogue of an (N, C, H, W) convolution output, any device:
+    ``x + bias`` per channel, then ``F.relu`` if ``relu``, then
+    ``F.max_pool2d(., 2, 2)`` if ``pool``. A new tensor; ``x`` is kept."""
+    conv_epilogue_ref.calls += 1
+    y = x + bias.view(1, -1, 1, 1)
+    if relu:
+        y = F.relu(y)
+    return F.max_pool2d(y, 2, 2) if pool else y
+
+
+conv_epilogue_ref.calls = 0
+
+
+def conv_epilogue(x: torch.Tensor, bias: torch.Tensor, relu: bool,
+                  pool: bool) -> torch.Tensor:
+    """Bias, ReLU and 2 x 2 max-pool of a convolution's output; the CUDA
+    kernel for CUDA tensors (f32, contiguous; the pool only after the ReLU;
+    without the pool it writes into ``x``, so use the result and not ``x``),
+    else the plain version. Same values as ``conv_epilogue_ref``, bit for
+    bit. The kernel has no backward: it refuses inputs that would record
+    one."""
+    if x.device.type == "cpu":
+        return conv_epilogue_ref(x, bias, relu, pool)
+    if torch.is_grad_enabled() and (x.requires_grad or bias.requires_grad):
+        raise ValueError("conv_epilogue has no backward: call it under "
+                         "torch.no_grad()")
+    from omniswarm_torch import kernels
+
+    out = kernels.conv_epilogue(x, bias, relu, pool)  # raises off-GPU
+    conv_epilogue.launches += 1
+    return out
+
+
+conv_epilogue.launches = 0
