@@ -75,15 +75,42 @@ non-zero without printing a result.
    yardstick (the three PyTorch ops the path ran before: the in-place bias
    add of PyTorch's cuDNN route, F.relu, F.max_pool2d), beside the bytes
    bound. The edge cases are tests/test_torch_conv_epilogue.py's.
+6c. C1 phase: the hand-written 3 x 3 convolution (csrc/conv3x3.cu) at the
+   distinct shapes of SuperPoint's nine C1 convolutions in the three
+   benchmark cells (C1_CASES: 5 views of 480 x 640, 80 and 40 views of
+   208 x 400). Checked at one view (RGB-D) or two (stereo) against the
+   plain version computed by PyTorch's direct convolution (cuDNN off,
+   TF32 off): within 2 * 9C * 2^-24 * sum |w x| of it at every output (the
+   f32 error bound of either order of the same sums), and two calls
+   bit-equal. Timed at the cells' batches, a few CUDA-event windows each:
+   C1 on weights re-laid once, the plain version (F.conv2d: cuDNN's
+   heuristic pick, TF32 off) and the library yardstick, cuDNN's best f32
+   algorithm (torch.backends.cudnn.benchmark set only around that timing;
+   the port never sets it), beside the FLOP bound (2 N H W C K 9 FLOPs at
+   67 TFLOP/s). The edge cases are tests/test_torch_conv3x3.py's; the
+   main path's launches are phase 7b's.
 7. Front-end path: omniswarm_torch.frontend_entry.frontend_entry() at
    full size (5 drones x 15 keyframe steps of 40 views at 400 x 208; its
    views rendered once for this phase and phase 9a's image demo). No
    plain version may run; K2 and K3 launch 15 times each, the conv
-   epilogue 12 times a step. Held against the
+   epilogue 12 times a step; C1 never (OmniLoopCam's stereo batch keeps
+   cuDNN's bits for its f16 outputs, swarm/loop_cam.py). Held against the
    JAX package's CPU anchors: each keyframe's landmark count, keypoint sums,
    inverse-range landmark sums and global-descriptor projection within
    frontend_entry.checksum_faults's tolerances, at least 95% of the 75
    top-1 indices equal, the top-1 precision within 0.02.
+7b. RGB-D front-end path: LoopCam.on_depth_frames_batch, the entry point
+   of the RGB-D keyframes (the realsense.launch camera: fx = fy = 385 at
+   480 x 640), with the bundled checkpoints, on RGBD_STEPS steps of 5
+   drones' uint8 views (rendered shapes) and uint16 millimetre depth maps
+   (32 x 32 blocks of 0.5-12 m, 10% of 8 x 8 blocks in holes). No plain
+   version may run; C1 launches 9 times a step (one SuperPoint forward),
+   the conv epilogue 12, K2 once. Held to the same steps on the plain path
+   (fused_epilogue off: cuDNN with its bias, F.relu, F.max_pool2d): at
+   least 99% of each view's valid keypoints within 1e-3 px of one of the
+   other's, both ways; their descriptors within 1e-4 and, where lifted on
+   both, their landmarks within 1e-3 m; lifted counts within 1% a step;
+   global descriptors within 1e-5.
 7a. Estimator path: omniswarm_torch.estimator_entry.estimator_entry(), a
    SwarmEstimator serving a 5-drone flight of 150 frames (seed 0, 20% loop
    outliers), a solve every 10th frame (15 solves; the window fills to 100
@@ -325,7 +352,9 @@ non-zero without printing a result.
    launches_window_scale and levels_window_scale by F, each kernel's on the
    textured eval as launches_textured_eval; phase 16a's as
    launches_drift_probe and launches_comm_model for K1, launches_convert
-   for K2, and launches_reference_tools for K3), then the result line.
+   for K2, and launches_reference_tools for K3; C1's on phase 7b's RGB-D
+   path as launches, on phase 7's stereo batch as launches_stereo), then
+   the result line.
 """
 from __future__ import annotations
 
@@ -400,6 +429,14 @@ EPILOGUE_CASES = (((80, 64, 208, 400), True, False),
                   ((80, 64, 208, 400), True, True),
                   ((80, 128, 52, 100), True, True),
                   ((80, 65, 26, 50), False, False))
+# phase 6c: (N, C, K, H, W) of C1's distinct shapes in the three cells:
+# conv1b, conv2a (= conv2b), conv3a, conv3b, conv4a (= conv4b), convPa
+# (= convDa) for 5 views of 480 x 640 and for 80 and 40 views of 208 x 400
+C1_CASES = tuple(
+    (N, C, K, H >> d, W >> d)
+    for N, H, W in ((5, 480, 640), (80, 208, 400), (40, 208, 400))
+    for C, K, d in ((64, 64, 0), (64, 64, 1), (64, 128, 2), (128, 128, 2),
+                    (128, 128, 3), (128, 256, 3)))
 # K2 edge cases, each checked bit-exact against the plain version: (shape,
 # r, kind, 16-byte aligned). NaN cells, r = 0 and 16, W % 4 != 0, a map
 # smaller than its window, views 4 bytes off 16 (4-byte loads), maps wider
@@ -757,6 +794,7 @@ EST_DEPLOYED_ACPT = 100.0   # the shipped acpt_cost
 FE_IDX_SHARE = 0.95         # top-1 indices equal to the anchors
 FE_PRECISION_ATOL = 0.02
 FE_STEPS = 15
+RGBD_STEPS = 4               # phase 7b's steps of 5 RGB-D views
 # The demos' anchors, from the JAX package on the CPU (PYTHONPATH=.
 # JAX_PLATFORMS=cpu python tools/demo_anchors.py): per demo the unique loop
 # keys (pair-canonical (drone, centiseconds) of both ends), the false ones,
@@ -2326,35 +2364,198 @@ def epilogue_phase():
     return rows
 
 
+def c1_phase():
+    """Phase 6c: C1 at C1_CASES (see the docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    from omniswarm_torch import kernels
+    from omniswarm_torch.benchutil import bound, time_ms
+    from omniswarm_torch.core.precision import highp
+    from omniswarm_torch.ops.frontend_kernels import (conv3x3_ref,
+                                                      conv3x3_weight)
+
+    def direct(x, w):
+        with torch.backends.cudnn.flags(enabled=False):
+            return F.conv2d(x, w, None, 1, 1)
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    with highp():
+        for N, C, K, H, W in C1_CASES:
+            x = torch.randn((N, C, H, W), generator=g, device="cuda").relu_()
+            w = torch.randn((K, C, 3, 3), generator=g, device="cuda") * (
+                2.0 / (9 * C)) ** 0.5
+            wr = conv3x3_weight(w)
+            n = 1 if H == 480 else 2            # the check's views
+            got = kernels.conv3x3(x[:n], wr)
+            want = direct(x[:n], w)
+            tol = 2 * 9 * C * 2.0 ** -24 * direct(x[:n].abs(), w.abs())
+            again = kernels.conv3x3(x[:n], wr)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            check(bool((err <= tol).all()), f"C1 at {(N, C, K, H, W)} off "
+                  f"the direct convolution by {float(err.max())}")
+            check(torch.equal(got, again), f"C1 at {(N, C, K, H, W)}: two "
+                  f"calls differ")
+            row = dict(shape=[N, C, K, H, W], tile=kernels.conv3x3_tile(H, W),
+                       max_abs_err=float(err.max()),
+                       max_err_share_of_bound=float((err / tol).nan_to_num(
+                           0.0).max()),
+                       max_abs_err_heuristic=float(
+                           (got - conv3x3_ref(x[:n], w)).abs().max()))
+            del got, want, tol, again, err
+            few = dict(reps=3, calls=2, warmup=1)
+            row.update(ms=time_ms(lambda: kernels.conv3x3(x, wr), **few),
+                       plain_ms=time_ms(lambda: conv3x3_ref(x, w), **few))
+            torch.backends.cudnn.benchmark = True
+            try:
+                row["library_ms"] = time_ms(
+                    lambda: F.conv2d(x, w, None, 1, 1), **few)
+            finally:
+                torch.backends.cudnn.benchmark = False
+            row["bound_ms"], row["bound_by"] = bound(
+                4 * (x.numel() + w.numel() + N * K * H * W),
+                2 * N * H * W * C * K * 9)
+            del x, w, wr
+            print("kernel conv3x3", json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
+def rgbd_phase() -> dict:
+    """Phase 7b: the RGB-D keyframes' entry point with C1 (see the
+    docstring)."""
+    import torch
+
+    from omniswarm_torch.config import FrontendParams
+    from omniswarm_torch.models import superpoint
+    from omniswarm_torch.ops.frontend_kernels import (
+        conv3x3, conv3x3_ref, conv_epilogue, conv_epilogue_ref, grid_nms,
+        grid_nms_ref)
+    from omniswarm_torch.sim.image_world import render_shapes
+    from omniswarm_torch.swarm.loop_cam import CameraIntrinsics, LoopCam
+
+    H, W, D = 480, 640, 5
+    rng = np.random.default_rng(8)
+    steps = []
+    for s in range(RGBD_STEPS):
+        entries = []
+        for d in range(D):
+            gray = (render_shapes(rng, H, W, n_shapes=12)[0] * 255).astype(
+                np.uint8)
+            depth = np.kron(rng.uniform(500, 12000, (H // 32, W // 32)),
+                            np.ones((32, 32))).astype(np.uint16)
+            holes = np.kron(rng.random((H // 8, W // 8)) < 0.1,
+                            np.ones((8, 8), bool))
+            depth[holes] = 0
+            entries.append((d, 2 * s, 0.1 * s, np.eye(4, dtype=np.float32),
+                            gray, depth))
+        steps.append(entries)
+    cam = LoopCam(params=FrontendParams(height=H, width=W),
+                  intrinsics=CameraIntrinsics(385.0, 385.0, 320.0, 240.0))
+    cam.on_depth_frames_batch(steps[0])                       # warm-up
+
+    def counts():
+        return (conv3x3.launches, conv_epilogue.launches, grid_nms.launches,
+                conv3x3_ref.calls + conv_epilogue_ref.calls
+                + grid_nms_ref.calls)
+
+    before = counts()
+    fused, valid, ms = [], [], []
+    for entries in steps:
+        t0 = time.perf_counter()
+        fused.append(cam.on_depth_frames_batch(entries))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        valid.append(cam.last_kp_valid)
+    c1, epilogues, k2, plain_calls = (a - b for a, b in zip(counts(),
+                                                             before))
+    check(plain_calls == 0, "a plain front-end kernel version ran on the "
+          "RGB-D path")
+    check(c1 == 9 * RGBD_STEPS and epilogues == 12 * RGBD_STEPS
+          and k2 == RGBD_STEPS, f"C1 / epilogue / K2 launched {c1} / "
+          f"{epilogues} / {k2} times in {RGBD_STEPS} RGB-D steps, expected "
+          f"9 / 12 / 1 a step")
+
+    fused_rule = superpoint.fused_epilogue
+    superpoint.fused_epilogue = lambda x: False
+    try:
+        plain, plain_valid = [], []
+        for entries in steps:
+            plain.append(cam.on_depth_frames_batch(entries))
+            plain_valid.append(cam.last_kp_valid)
+    finally:
+        superpoint.fused_epilogue = fused_rule
+    shares, desc_err, lm_err, gd_err, lifted = [], 0.0, 0.0, 0.0, []
+    for kfs, kv, pkfs, pkv in zip(fused, valid, plain, plain_valid):
+        lifted.append((sum(int(k.valid.sum()) for k in kfs),
+                       sum(int(k.valid.sum()) for k in pkfs)))
+        for b, (k, p) in enumerate(zip(kfs, pkfs)):
+            a, r = torch.from_numpy(k.kp_xy[kv[b]]), torch.from_numpy(
+                p.kp_xy[pkv[b]])
+            dist = torch.cdist(a, r,
+                               compute_mode="donot_use_mm_for_euclid_dist")
+            near_a, near_r = dist.min(1), dist.min(0)
+            shares += [float((near_a.values <= 1e-3).float().mean()),
+                       float((near_r.values <= 1e-3).float().mean())]
+            same = (near_a.values <= 1e-3).numpy()
+            ia = np.flatnonzero(kv[b])[same]
+            ir = np.flatnonzero(pkv[b])[near_a.indices.numpy()[same]]
+            desc_err = max(desc_err, float(np.abs(
+                k.local_desc[ia] - p.local_desc[ir]).max(initial=0.0)))
+            both = k.valid[ia] & p.valid[ir]
+            lm_err = max(lm_err, float(np.abs(
+                k.landmarks_3d[ia[both]] - p.landmarks_3d[ir[both]]).max(
+                    initial=0.0)))
+            gd_err = max(gd_err, float(np.abs(k.global_desc
+                                              - p.global_desc).max()))
+    out = dict(steps=RGBD_STEPS, views=D * RGBD_STEPS, c1_launches=c1,
+               epilogue_launches=epilogues, k2_launches=k2,
+               keypoints_same_share=min(shares), desc_max_abs_err=desc_err,
+               landmark_max_abs_err_m=lm_err, global_desc_max_abs_err=gd_err,
+               lifted=lifted, depth_lookups=cam.depth_lookups,
+               depth_rejected=cam.depth_rejected,
+               step_ms=[round(v, 3) for v in ms])
+    print("rgbd path", json.dumps(out), flush=True)
+    check(min(shares) >= 0.99 and desc_err <= 1e-4 and lm_err <= 1e-3
+          and gd_err <= 1e-5
+          and all(abs(f - p) <= 0.01 * p for f, p in lifted),
+          f"the RGB-D path on C1 departs from the plain path: {out}")
+    return out
+
+
 def frontend_phase(prep):
     from omniswarm_torch.frontend_entry import (
         checksum_faults, frontend_entry, keyframe_checksums, summary)
     from omniswarm_torch.ops.frontend_kernels import (
-        conv_epilogue, conv_epilogue_ref, grid_nms, grid_nms_ref,
-        retrieval_top1, retrieval_top1_ref)
+        conv3x3, conv3x3_ref, conv_epilogue, conv_epilogue_ref, grid_nms,
+        grid_nms_ref, retrieval_top1, retrieval_top1_ref)
 
     grid_nms.launches = retrieval_top1.launches = conv_epilogue.launches = 0
+    conv3x3.launches = 0
     grid_nms_ref.calls = retrieval_top1_ref.calls = 0
-    conv_epilogue_ref.calls = 0
+    conv_epilogue_ref.calls = conv3x3_ref.calls = 0
     res = frontend_entry(device="cuda", prep=prep)
     k2, k3 = grid_nms.launches, retrieval_top1.launches
-    epilogues = conv_epilogue.launches
+    epilogues, c1 = conv_epilogue.launches, conv3x3.launches
     out = summary(res)
     same = int((res.top1_idx == np.asarray(FE_ANCHORS["top1_idx"])).sum())
     faults, diffs = checksum_faults(keyframe_checksums(res.keyframes),
                                     FE_ANCHORS, 400, 208)
     out.update(k2_launches=k2, k3_launches=k3, epilogue_launches=epilogues,
+               c1_launches=c1,
                top1_idx_equal=same, anchor_diffs=diffs,
                step_ms=[round(float(v), 3) for v in res.step_ms])
     print("frontend path", json.dumps(out), flush=True)
     check(grid_nms_ref.calls == 0 and retrieval_top1_ref.calls == 0
-          and conv_epilogue_ref.calls == 0,
+          and conv_epilogue_ref.calls == 0 and conv3x3_ref.calls == 0,
           "a plain front-end kernel version ran on the card path")
     check(k2 == FE_STEPS and k3 == FE_STEPS,
           f"K2/K3 launched {k2}/{k3} times, expected {FE_STEPS} each")
     check(epilogues == 12 * FE_STEPS,
           f"the conv epilogue launched {epilogues} times, expected "
           f"{12 * FE_STEPS}")
+    check(c1 == 0, f"C1 launched {c1} times on the stereo batch")
     check(len(res.keyframes) == 5 * FE_STEPS,
           f"{len(res.keyframes)} keyframes")
     for kf in res.keyframes:
@@ -4315,6 +4516,9 @@ def main() -> int:
     epilogue_rows = epilogue_phase()
     print(f"conv epilogue phase {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    c1_rows = c1_phase()
+    print(f"C1 phase {time.perf_counter() - t0:.1f} s", flush=True)
     from omniswarm_torch.frontend_entry import prepare
 
     t0 = time.perf_counter()
@@ -4322,6 +4526,9 @@ def main() -> int:
     fe = frontend_phase(prep)
     print(f"front-end path phase {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    rgbd = rgbd_phase()
+    print(f"RGB-D path phase {time.perf_counter() - t0:.1f} s", flush=True)
     est = estimator_phase()
     print(f"estimator path phase {est['seconds']:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -4465,6 +4672,15 @@ def main() -> int:
         "replaces": None,
         "launches": fe["epilogue_launches"],
         "shapes": epilogue_rows,
+    }, {
+        "name": "conv3x3",
+        "route": "cuda",
+        "source": "omniswarm_torch/csrc/conv3x3.cu",
+        "replaces": None,
+        "launches": rgbd["c1_launches"],
+        "launches_stereo": fe["c1_launches"],
+        "rgbd_path": rgbd,
+        "shapes": c1_rows,
     }]}
     print("solver paths", json.dumps(solver), flush=True)
     print(f"chip_smoke {time.perf_counter() - start:.1f} s", flush=True)

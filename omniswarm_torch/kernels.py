@@ -32,11 +32,14 @@ PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 SOURCES = {name: PKG_DIR / "csrc" / f"{name}.cu"
            for name in ("fused_level", "grid_nms", "retrieval_top1",
-                        "conv_epilogue")}
+                        "conv_epilogue", "conv3x3")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 FUSED_LEVEL_MAX_M = 80       # the reference never packs wider (dense.py:1101)
 GRID_NMS_MAX_RADIUS = 16     # the kernel's shared strip is sized for it
+CONV3X3_CHUNK = 8            # input channels a stage of csrc/conv3x3.cu
+CONV3X3_TILE_K = 64          # output channels a CTA
+CONV3X3_TILES = ((8, 32), (16, 16))   # the kernel's pixel tiles (TH, TW)
 
 build_logs: Dict[str, str] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -135,6 +138,11 @@ def _load(name: str) -> ctypes.CDLL:
             fn.restype = i32
             lib.conv_epilogue_vector_width.argtypes = [ptr, ptr, i32, i32, i32]
             lib.conv_epilogue_vector_width.restype = i32
+        elif name == "conv3x3":
+            fn = lib.conv3x3_launch
+            fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+                           ptr]
+            fn.restype = i32
         _libs[name] = lib
     return lib
 
@@ -340,3 +348,56 @@ def conv_epilogue_vector_width(x: torch.Tensor, out: torch.Tensor,
     H, W = x.shape[-2:]
     return _load("conv_epilogue").conv_epilogue_vector_width(
         x.data_ptr(), out.data_ptr(), H, W, int(pool))
+
+
+def conv3x3_tile(H: int, W: int) -> Tuple[int, int]:
+    """The pixel tile (TH, TW) csrc/conv3x3.cu takes for H x W maps: of
+    ``CONV3X3_TILES``, the one whose blocks cover the fewest pixels (the
+    ragged edges' waste), the first on a tie."""
+    def covered(tile):
+        th, tw = tile
+        return -(-H // th) * th * (-(-W // tw) * tw)
+    return min(CONV3X3_TILES, key=covered)
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/conv3x3.cu: a stride-1, pad-1, 3 x 3 f32 convolution
+    without bias.
+
+    x (N, C, H, W) and the re-laid weights w (K / 64, C, 9, 64)
+    (``ops.frontend_kernels.conv3x3_weight``), f32, contiguous, on one CUDA
+    device; C a multiple of 8. Returns a new (N, K, H, W) f32 tensor.
+    """
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, C, H, W), got {tuple(x.shape)}")
+    N, C, H, W = x.shape
+    if min(N, H, W) < 1 or N > 65535:
+        raise ValueError(f"x shape {tuple(x.shape)} not supported")
+    if C < CONV3X3_CHUNK or C % CONV3X3_CHUNK:
+        raise ValueError(f"{C} input channels: the kernel takes a multiple "
+                         f"of {CONV3X3_CHUNK}")
+    if w.dim() != 4 or tuple(w.shape[1:]) != (C, 9, CONV3X3_TILE_K):
+        raise ValueError(f"w has shape {tuple(w.shape)}, expected "
+                         f"(K / {CONV3X3_TILE_K}, {C}, 9, "
+                         f"{CONV3X3_TILE_K}): the re-laid 3 x 3 weights")
+    for name, t in (("x", x), ("w", w)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be torch.float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if x.device != w.device:
+        raise ValueError("x and w must be on one device")
+    if w.data_ptr() % 16:
+        raise ValueError("w does not start on 16 bytes")
+    K = w.shape[0] * CONV3X3_TILE_K
+    th, tw = conv3x3_tile(H, W)
+    lib = _load("conv3x3")
+    out = torch.empty((N, K, H, W), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.conv3x3_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                 N, C, H, W, K, th, tw, _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"conv3x3 launch failed: CUDA error {err}")
+    return out

@@ -23,7 +23,15 @@ f32 inference on the card (``fused_epilogue``: autograd off) convolves
 without the bias and runs each convolution's bias, ReLU and 2 x 2 pool as
 one launch of ``conv_epilogue`` (csrc/conv_epilogue.cu), 12 a forward, bit
 for bit what the PyTorch ops give (PyTorch's cuDNN route adds the bias
-after the convolution too). Training, the bf16 trunk and the CPU run the
+after the convolution too). On the same path the nine 3 x 3 convolutions
+with 64 or more input channels (all but ``conv1a`` and the two 1 x 1
+heads) run on ``conv3x3`` (C1, csrc/conv3x3.cu), in true f32 with weights
+re-laid once per module (``CastConv2d.relaid_weight``); ``conv1a`` and the
+heads stay on cuDNN. C1 sums in the order of cuDNN's f32 implicit GEMM
+(the same bits where cuDNN picks that algorithm) and differs by rounding
+where cuDNN's heuristic picks its FFT path. ``SuperPoint.c1`` (True) is
+cleared only by ``OmniLoopCam``, whose stereo batch keeps cuDNN's bits
+(``swarm/loop_cam.py``). Training, the bf16 trunk and the CPU run the
 PyTorch ops.
 
 For training (``models/train_superpoint.py``): ``forward(return_logits=True)``
@@ -43,7 +51,11 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from omniswarm_torch.core.device import resolve_device
-from omniswarm_torch.ops.frontend_kernels import conv_epilogue
+from omniswarm_torch.ops.frontend_kernels import (
+    conv3x3,
+    conv3x3_weight,
+    conv_epilogue,
+)
 from omniswarm_torch.ops.keypoints import (
     bilinear_sample_descriptors,
     extract_keypoints,
@@ -68,6 +80,9 @@ def _unit(x: torch.Tensor, dim: int) -> torch.Tensor:
                                                         keepdim=True), 1e-8)
 
 
+C1_MIN_CHANNELS = 64     # 3 x 3 convolutions with this many inputs run C1
+
+
 class CastConv2d(nn.Conv2d):
     """Conv2d in the dtype of its input: the f32 weight and bias are rounded
     to the input's dtype at each call (a no-op for f32 inputs)."""
@@ -75,6 +90,20 @@ class CastConv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+    def relaid_weight(self) -> torch.Tensor:
+        """The weight in C1's layout (``conv3x3_weight``), made once and
+        kept until the weight changes: the cache holds the weight's storage
+        (so no new weight can take its address) and its version, which
+        ``load_state_dict``'s in-place copy and any other in-place write
+        advance."""
+        w = self.weight
+        key = (w.data_ptr(), w.device, w._version)
+        cached = self.__dict__.get("_relaid")
+        if cached is None or cached[0] != key:
+            cached = (key, w.detach(), conv3x3_weight(w))
+            self.__dict__["_relaid"] = cached
+        return cached[2]
 
 
 def fused_epilogue(x: torch.Tensor) -> bool:
@@ -95,18 +124,25 @@ class SuperPoint(nn.Module):
     def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.c1 = True      # fused: the nine 3 x 3 convolutions run on C1
         for name, cin, cout, k in _CONVS:
             self.add_module(name, CastConv2d(cin, cout, k, padding=k // 2))
 
     def _conv(self, name: str, x: torch.Tensor, fused: bool,
               relu: bool = True, pool: bool = False) -> torch.Tensor:
         """Convolution ``name``, then ReLU and 2 x 2 max-pool as asked:
-        ``fused``, the convolution without its bias and one
-        ``conv_epilogue`` launch for the rest; else the three PyTorch ops."""
+        ``fused``, the convolution without its bias (with ``self.c1``, C1
+        for a 3 x 3 one with at least ``C1_MIN_CHANNELS`` inputs; else
+        cuDNN) and one ``conv_epilogue`` launch for the rest; else the three
+        PyTorch ops."""
         conv = getattr(self, name)
         if fused:
-            return conv_epilogue(conv._conv_forward(x, conv.weight, None),
-                                 conv.bias, relu, pool)
+            if (self.c1 and conv.kernel_size == (3, 3)
+                    and conv.in_channels >= C1_MIN_CHANNELS):
+                y = conv3x3(x, conv.weight, conv.relaid_weight())
+            else:
+                y = conv._conv_forward(x, conv.weight, None)
+            return conv_epilogue(y, conv.bias, relu, pool)
         x = conv(x)
         if relu:
             x = F.relu(x)

@@ -10,12 +10,16 @@ Counterpart of ``omniswarm_tpu/ops/pallas_kernels.py``:
 - ``conv_epilogue`` (replaces no TPU kernel: XLA fuses it there): bias,
   ReLU and 2 x 2 max-pool of a SuperPoint convolution's output in one pass;
   csrc/conv_epilogue.cu.
+- ``conv3x3`` (C1, replaces no TPU kernel: XLA runs the convolution there):
+  a stride-1, pad-1, 3 x 3 f32 convolution without bias, NCHW, as a direct
+  implicit GEMM on f32 FMAs; csrc/conv3x3.cu. Its weights are re-laid once
+  by ``conv3x3_weight``.
 
 A CUDA tensor goes to the hand-written kernel (through
 ``omniswarm_torch.kernels``) and a CPU tensor to the plain version
-(``grid_nms_ref``, ``retrieval_top1_ref``). Each dispatcher keeps a plain
-integer ``.launches`` count of kernel launches and each plain version a
-``.calls`` count.
+(``grid_nms_ref``, ``retrieval_top1_ref``, ``conv_epilogue_ref``,
+``conv3x3_ref``). Each dispatcher keeps a plain integer ``.launches`` count
+of kernel launches and each plain version a ``.calls`` count.
 """
 from __future__ import annotations
 
@@ -138,3 +142,51 @@ def conv_epilogue(x: torch.Tensor, bias: torch.Tensor, relu: bool,
 
 
 conv_epilogue.launches = 0
+
+
+def conv3x3_weight(weight: torch.Tensor) -> torch.Tensor:
+    """A 3 x 3 convolution's weight (K, C, 3, 3) in C1's layout
+    (K / 64, C, 9, 64): ``out[kb, c, 3 r + s, k] = weight[64 kb + k, c, r,
+    s]``, contiguous, on the weight's device. K must be a multiple of 64."""
+    if weight.dim() != 4 or tuple(weight.shape[2:]) != (3, 3):
+        raise ValueError(f"weight has shape {tuple(weight.shape)}: C1 takes "
+                         f"3 x 3 kernels")
+    K, C = weight.shape[:2]
+    if K % 64:
+        raise ValueError(f"{K} output channels: C1 takes a multiple of 64")
+    return weight.detach().reshape(K // 64, 64, C, 9).permute(
+        0, 2, 3, 1).contiguous()
+
+
+def conv3x3_ref(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Plain stride-1, pad-1 convolution of x (N, C, H, W) by weight
+    (K, C, 3, 3), without bias, any device: ``F.conv2d``."""
+    conv3x3_ref.calls += 1
+    return F.conv2d(x, weight, None, 1, 1)
+
+
+conv3x3_ref.calls = 0
+
+
+def conv3x3(x: torch.Tensor, weight: torch.Tensor,
+            relaid: torch.Tensor) -> torch.Tensor:
+    """C1: a stride-1, pad-1, 3 x 3 convolution without bias; the CUDA
+    kernel for CUDA tensors (f32, contiguous, C a multiple of 8, K of 64;
+    ``relaid`` is ``conv3x3_weight(weight)``, which the kernel reads),
+    else the plain version (on ``weight``). The same products and sums as
+    ``conv3x3_ref`` in a fixed order (c, then r, then s): equal to
+    rounding, and the same bits call after call. The kernel has no
+    backward: it refuses inputs that would record one."""
+    if x.device.type == "cpu":
+        return conv3x3_ref(x, weight)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        raise ValueError("conv3x3 has no backward: call it under "
+                         "torch.no_grad()")
+    from omniswarm_torch import kernels
+
+    out = kernels.conv3x3(x, relaid)                   # raises off-GPU
+    conv3x3.launches += 1
+    return out
+
+
+conv3x3.launches = 0

@@ -24,8 +24,11 @@ The RGB-D path (``LoopCam.on_depth_frames_batch``, the reference's
 PINHOLE_DEPTH keyframes) runs every drone's view as one batch too: the
 depth lookup at each keypoint, the lift and the depth gate run on the
 device, and the outputs leave it in float32 (the reference hands them out
-unrounded) in one download. A RealSense z16 depth map (uint16 millimetres)
-travels as int16 and is scaled on the device.
+unrounded) in one download. A RealSense z16 depth map (uint16
+millimetres) travels as int16 and is scaled on the device. ``LoopCam``'s
+SuperPoint runs the nine 3 x 3 convolutions on C1 (``models/superpoint.py``);
+``OmniLoopCam``'s keeps them on cuDNN, whose bits its f16 outputs are held
+to.
 
 Besides the device stages' ``torch.profiler`` ranges (``frontend/netvlad``,
 ``frontend/matching``, ``frontend/triangulation``, ``frontend/depth_lift``),
@@ -321,6 +324,15 @@ class OmniLoopCam(LoopCam):
     """
 
     VIEW_YAWS = (0.0, np.pi / 2, np.pi, -np.pi / 2)
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        # cuDNN, not C1: the stereo batch's outputs leave the device in
+        # f16, where C1's rounding difference from cuDNN's FFT path flips a
+        # far landmark's f16 value by one spacing (0.20-0.22 px projected),
+        # which the stereo cells' landmark_px limit of 0.2 px refuses; C1
+        # takes these over once that limit admits one spacing (ROADMAP.md)
+        self._kp.net.c1 = False
 
     def on_fisheye_frame(self, drone_id: int, frame_id: int, t: float,
                          vio_pose: np.ndarray,

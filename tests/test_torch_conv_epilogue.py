@@ -301,12 +301,18 @@ def _rendered_views(n=80, H=208, W=400):
 
 @pytest.mark.cuda
 def test_extractor_outputs_equal_fused_and_plain(cuda_device, monkeypatch):
+    """The epilogue's own effect: the fused path's convolutions are left
+    to cuDNN here (``c1`` cleared, as ``OmniLoopCam`` runs the stereo
+    batch) as on the plain path (C1 sums in another order where cuDNN picks
+    FFT, see tests/test_torch_conv3x3.py), so the outputs must be equal bit
+    for bit."""
     from omniswarm_torch.core.precision import highp
 
     ext = superpoint.pretrained_extractor(cuda_device)
     imgs = _rendered_views().to(cuda_device)
     launches = fk.conv_epilogue.launches
     with highp():
+        ext.net.c1 = False
         fused = ext(imgs)
         assert fk.conv_epilogue.launches == launches + 12
         monkeypatch.setattr(superpoint, "fused_epilogue", lambda x: False)
