@@ -7,30 +7,29 @@ Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit. Every phase is fatal: any failure raises and the script exits
 non-zero without printing a result.
 
+It runs the kernels' card checks, drives the port's paths at full size on
+the card and holds them to the JAX package's anchors from the CPU, and
+checks what each path launched: the kernels' launch counts and shapes, and
+that no plain version ran. The kernels' timings are not taken here:
+python3 -m omniswarm_torch.bench_kernels takes them.
+
 1. Prints the card's name and power limit (nvidia-smi) and builds every
    kernel of the port from csrc/ (one nvcc per source, started together).
-2. K1 phase: the fused cyclic-reduction level kernel against its plain
-   PyTorch version on the card (rtol = atol = 2e-4 on all 7 outputs) at
-   every level shape the solves launch (m=40 with t=32, 16, 8, 4 at F=100;
-   m=80 with t=128, 64, 32, 16, 8, 4 at F=1024, t=256 at 10 x 1024 and
-   t = F/8 ... 4 on phase 15a's sweep: 512, 1,024 and 2,048 at F=4,096 ...
-   16,384) and at odd widths and single pairs, each on the warm,
-   guard-fallback and NaN-start branches. Timed: the warm branch at every
-   level shape, the fallback branch at (40, 32), (80, 128), (80, 4) and
-   (80, 256) and the NaN start at (80, 4) and (80, 256). Each timed row
-   gives the CTAs per pair (cluster size), the kernel's CUDA-event median
-   and the least time the card could take (bytes over 3.35 TB/s, FLOPs
-   over 67 TFLOP/s FP32); the warm and fallback rows at (40, 32) and (80,
-   128) and the warm rows at (80, 256), (80, 512), (80, 1,024) and (80,
-   2,048) also time the wrapper and the plain version.
+2. The kernels against their plain versions: the ``cuda`` tests of
+   CARD_TESTS, the one place those checks are written (K1 at every
+   SOLVE_LEVELS shape and odd widths on three branches; K2 and K3 at the
+   paths' batches and edge cases; E1 bit-equal at the main path's 12
+   shapes; C1 against the direct convolution at the cells' shapes; the
+   RGB-D batch against benchmark/reference/rgbd.py), in one pytest
+   process. Every test must pass and none skip. The "kernels" line at the
+   end gives the tests passed per test function, the largest error each
+   recorded, and the launches the path phases counted.
 3. Main path: omniswarm_torch.entry.entry() at F=100, D=5, seed 0,
    20 LM iterations. Checks a finite cost below the initial one, within 1%
    of the reference's 177.25, relative ATE < 0.08, 4 kernel launches per
-   iteration at the level shapes above (recorded in the run); the same
-   solve with fused=False must agree within 1e-3. Then K1's kernel ms per
-   LM iteration: the K1 phase's time of each shape the run launched, times
-   its launches, beside the summed bound.
-4. The same at F=1024 (pack 4, m=80, 6 launches per iteration), against
+   iteration at SOLVE_LEVELS's shapes (m=40 with t=32, 16, 8, 4; recorded
+   in the run); the same solve with fused=False must agree within 1e-3.
+4. The same at F=1024 (pack 4, m=80 with t=128 ... 4), against
    the reference's 2330.99 and relative ATE < 0.1. At both sizes a second
    fused solve must give a bit-equal cost and equal poses.
 4a. The rest of the solver, each path solved twice (bit-equal cost and
@@ -51,44 +50,6 @@ non-zero without printing a result.
    lm_solve_dense, lm_solve and lm_solve_multi_init (4 inits) within 1% of
    their anchors, dense against generic within 5e-2 in cost and 0.03 in
    relative ATE. Each path's ms per LM iteration is printed.
-5. K2 phase: the grid-NMS kernel against its plain version, bit-exact,
-   at the edge cases of K2_EDGE_CASES (the training path's (1, 64, 96) and
-   (16, 64, 96), NaN, r = 0 and 16, W % 4 != 0, a tiny map, unaligned
-   views, column tiles, the 10-drone step (80, 208, 400) with NaN cells)
-   and at (40, 208, 400), the shape of one front-end step, on random u**8
-   heat and on a real SuperPoint heat map of the path's first step, and at
-   (80, 208, 400) on random u**8 heat. CUDA-event medians of the kernel
-   with its input warm in L2 (``ms``) and cycling through 10 distinct maps,
-   so each call reads HBM (``cold_ms``), of the plain version and of the
-   library call (max_pool2d + where), beside the bytes bound.
-6. K3 phase: the top-1 retrieval kernel against its plain version at
-   N = D = 4096 and at N = 512, D = 4096, Q = 1 and 5, and at the edge
-   shapes N = 1000, D = 130, Q = 9 and N = D = 4096, Q = 8, on a partly
-   masked DB with planted ties (across CTAs and inside one row tile) and
-   an all-masked query: equal indices, the lower row of each tie,
-   (0, -inf) for the masked query, similarities within 1e-5 relative. The
-   same timings (library: argmax of the masked matmul).
-6b. Conv epilogue phase: the kernel of SuperPoint's convolution epilogues
-   (bias, ReLU, 2 x 2 max-pool) bit-equal to its plain version at the main
-   path's four distinct cases at 80 views (EPILOGUE_CASES), and a few
-   CUDA-event windows each of the kernel, the plain version and the library
-   yardstick (the three PyTorch ops the path ran before: the in-place bias
-   add of PyTorch's cuDNN route, F.relu, F.max_pool2d), beside the bytes
-   bound. The edge cases are tests/test_torch_conv_epilogue.py's.
-6c. C1 phase: the hand-written 3 x 3 convolution (csrc/conv3x3.cu) at the
-   distinct shapes of SuperPoint's nine C1 convolutions in the three
-   benchmark cells (C1_CASES: 5 views of 480 x 640, 80 and 40 views of
-   208 x 400). Checked at one view (RGB-D) or two (stereo) against the
-   plain version computed by PyTorch's direct convolution (cuDNN off,
-   TF32 off): within 2 * 9C * 2^-24 * sum |w x| of it at every output (the
-   f32 error bound of either order of the same sums), and two calls
-   bit-equal. Timed at the cells' batches, a few CUDA-event windows each:
-   C1 on weights re-laid once, the plain version (F.conv2d: cuDNN's
-   heuristic pick, TF32 off) and the library yardstick, cuDNN's best f32
-   algorithm (torch.backends.cudnn.benchmark set only around that timing;
-   the port never sets it), beside the FLOP bound (2 N H W C K 9 FLOPs at
-   67 TFLOP/s). The edge cases are tests/test_torch_conv3x3.py's; the
-   main path's launches are phase 7b's.
 7. Front-end path: omniswarm_torch.frontend_entry.frontend_entry() at
    full size (5 drones x 15 keyframe steps of 40 views at 400 x 208; its
    views rendered once for this phase and phase 9a's image demo). No
@@ -98,19 +59,18 @@ non-zero without printing a result.
    JAX package's CPU anchors: each keyframe's landmark count, keypoint sums,
    inverse-range landmark sums and global-descriptor projection within
    frontend_entry.checksum_faults's tolerances, at least 95% of the 75
-   top-1 indices equal, the top-1 precision within 0.02.
+   top-1 indices equal, the top-1 precision within 0.02. K2's output on
+   the first step's SuperPoint heat maps is bit-equal to its plain
+   version's on the same maps.
 7b. RGB-D front-end path: LoopCam.on_depth_frames_batch, the entry point
-   of the RGB-D keyframes (the realsense.launch camera: fx = fy = 385 at
-   480 x 640), with the bundled checkpoints, on RGBD_STEPS steps of 5
-   drones' uint8 views (rendered shapes) and uint16 millimetre depth maps
-   (32 x 32 blocks of 0.5-12 m, 10% of 8 x 8 blocks in holes). No plain
-   version may run; C1 launches 9 times a step (one SuperPoint forward),
-   the conv epilogue 12, K2 once. Held to the same steps on the plain path
-   (fused_epilogue off: cuDNN with its bias, F.relu, F.max_pool2d): at
-   least 99% of each view's valid keypoints within 1e-3 px of one of the
-   other's, both ways; their descriptors within 1e-4 and, where lifted on
-   both, their landmarks within 1e-3 m; lifted counts within 1% a step;
-   global descriptors within 1e-5.
+   of the swarm5_rgbd640.rgbd_keyframes cell, through that cell's own
+   driver (benchmark/drivers/rgbd_keyframes.py: 5 drones' 640 x 480
+   infrared views and uint16 depth maps, the configuration's checkpoints,
+   a full 4,096-row PlaceDB, its two warm steps), RGBD_STEPS steps after
+   them. No plain version may run; C1 launches 9 times a step, the conv
+   epilogue 12, K2 and K3 once. Every step is then judged by the driver's
+   check against the plain reference (benchmark/reference/rgbd.py) and
+   held to the cell's limits (benchmark/limits/).
 7a. Estimator path: omniswarm_torch.estimator_entry.estimator_entry(), a
    SwarmEstimator serving a 5-drone flight of 150 frames (seed 0, 20% loop
    outliers), a solve every 10th frame (15 solves; the window fills to 100
@@ -122,8 +82,8 @@ non-zero without printing a result.
    1% of acpt_cost, a tie: after it only the bars), final relative ATE
    <= 0.08 and within 0.01 of its anchor, each drone's newest covariance
    diagonal within rtol 0.05, atol 5e-4; every prediction finite, the self
-   drone at the origin; K1 launched (its level shapes not covered by the K1
-   phase checked against the plain version after the run). A second held
+   drone at the origin; K1 launched (its level shapes outside SOLVE_LEVELS
+   checked against the plain version after the run). A second held
    session must give bit-equal costs and estimate. Then the deployed session
    (acpt_cost 100, as shipped), held to bars: finite costs, finish_init
    false after each solve above the gate and the next solve a multi-init,
@@ -158,8 +118,7 @@ non-zero without printing a result.
    numbers held, each drone's cost and relative ATE beside its anchor's,
    the median detector tick ms (host clock around a synchronised
    on_keyframes_batch), verify lanes per tick, views/s, the median keyframe
-   latency, K1/K2/K3 launches (K2's and K1's also as launches_demo in the
-   kernels line) and the parity's ticks, lanes and loops.
+   latency, K1/K2/K3 launches and the parity's ticks, lanes and loops.
 10a. The multi-device layouts (omniswarm_torch.parallel), after 9a: one
    spawn of 1 rank on NCCL and one of 4 gloo ranks sharing card 0 (several
    ranks on one card need gloo: NCCL refuses two ranks on one device), each
@@ -258,7 +217,7 @@ non-zero without printing a result.
    (linear="smw", K1 too; no anchor: held to a cost decrease) and the
    exact path (no K1), each repeat bit-equal, the PCG and exact runs held
    to their anchors as in (a). Each solve's ms per LM iteration and K1's
-   launches and kernel ms per iteration are printed. (c) The 10 x 30 image
+   launches are printed. (c) The 10 x 30 image
    demo (150 keyframes, 80 views a keyframe step) through the command
    line's own function,
    demo_entry.main(["image", "--drones", "10", "--frames", "30", "--out",
@@ -272,11 +231,7 @@ non-zero without printing a result.
    tests/test_bf16_frontend.py's bars: heat within 0.03, coarse descriptor
    cosine above 0.995, more than 90% of each image's keypoints matched
    within 1 px, global cosine above 0.99 and pairwise similarities within
-   0.02. (b) K2 at the bench's front-end shapes (4, 8, 16 and 64 views of
-   208 x 400) bit-exact against its plain version on random u**8 heat with
-   and without NaN cells; timed warm and cold (distinct maps over 3x the
-   L2), beside the plain version, the library call and the bytes bound.
-   (c) omniswarm_torch.cpu_baseline.measure at 20 LM iterations (the
+   0.02. (b) omniswarm_torch.cpu_baseline.measure at 20 LM iterations (the
    module: 100) with 1 repetition and no warm-up call but torch_cpu_bt's
    (the module takes 3 after one) into
    build/chip_smoke/, then
@@ -288,9 +243,10 @@ non-zero without printing a result.
    of BENCH_r05.json's parsed, no *_error key, the fused-vs-unfused
    kf1024 cost within bench.py's 2e-3, K1 launched in the headline,
    efficiency, kf1024 and dense-loop rows and K2 in the front-end row,
-   only at the shapes of (b), K3 never, no plain version; K1's level
-   shapes outside the kernel phase's checked against the plain version.
-   (d) omniswarm_torch.online_window.session at 1,024 keyframes and 2,000
+   only at K2_BENCH_SHAPES (4, 8, 16 and 64 views of 208 x 400), K3
+   never, no plain version; K1's level shapes outside SOLVE_LEVELS checked
+   against the plain version.
+   (c) omniswarm_torch.online_window.session at 1,024 keyframes and 2,000
    loops with 12 live solves, each solve held to ONLINE_ANCHORS
    (tools/online_window_anchors.py: the JAX estimator on the CPU through
    tools/online_window_bench.py's own functions) by
@@ -307,8 +263,7 @@ non-zero without printing a result.
    F within 1% of its JAX-CPU cost in SWEEP_ANCHORS
    (tools/solver_anchors.py --only window_scale) with the anchor's loops,
    iterations and linear path; F=16,384 solved twice (bit-equal); at every
-   F a cost below the initial one and relative ATE below raw VIO's; K1's
-   kernel ms per iteration from the kernel phase's rows. (b)
+   F a cost below the initial one and relative ATE below raw VIO's. (b)
    tools.replay_eval on CSV logs written from the simulator (3 drones, 30
    s) held to REPLAY_ANCHOR (the reference's tools/replay_eval.py on the
    CPU; both with max_solver_time 1e-6 s): the same solves over the same
@@ -339,22 +294,12 @@ non-zero without printing a result.
    calls and bytes equal to COMM_MODEL.json's plus the named [cost | bad]
    psum (one all-reduce, 4 B), the fleet without data collectives;
    and one world-1 timing of lm_solve_bt on the card (K1 launched, level
-   shapes outside the kernel phase checked). One "reference tools" JSON
+   shapes outside SOLVE_LEVELS checked). One "reference tools" JSON
    line.
-8. One JSON line with the solver paths' numbers, one with the kernels'
-   numbers (K1's launches on the estimator path as launches_estimator, on
-   the node's threaded session as launches_node; K1's, K2's and K3's on the
-   training path as launches_train and on the 10-drone demo as
-   launches_demo_d10; K1's on phase 13a's solves as launches_d10_100,
-   launches_d10_1024 and launches_dense_loops; each kernel's on phase
-   14a's bench rows as launches_bench and on the online window as
-   launches_online_window; K1's on phase 15a's sweep as
-   launches_window_scale and levels_window_scale by F, each kernel's on the
-   textured eval as launches_textured_eval; phase 16a's as
-   launches_drift_probe and launches_comm_model for K1, launches_convert
-   for K2, and launches_reference_tools for K3; C1's on phase 7b's RGB-D
-   path as launches, on phase 7's stereo batch as launches_stereo), then
-   the result line.
+Then the "kernels" line (phase 2's tests and errors, the launches the path
+phases counted), the solver paths' numbers (one JSON line), the seconds of
+each phase (one JSON line), the script's seconds, the card and the result
+line.
 """
 from __future__ import annotations
 
@@ -367,17 +312,17 @@ import subprocess
 import sys
 import time
 
+import xml.etree.ElementTree as ET
+from pathlib import Path
+
 import numpy as np
 
-K1_FULL_ROWS = ((40, 32, "warm"), (40, 32, "fallback"), (80, 128, "warm"),
-                (80, 128, "fallback"), (80, 256, "warm"), (80, 512, "warm"),
-                (80, 1024, "warm"), (80, 2048, "warm"))
-K1_EXTRA_ROWS = ((80, 4, "fallback"), (80, 4, "nan"), (80, 256, "fallback"),
-                 (80, 256, "nan"))
+ROOT = Path(__file__).resolve().parent
+# phase 2: the four JAX-free test files that hold every kernel's card check
+CARD_TESTS = ("tests/test_torch_kernels_card.py",
+              "tests/test_torch_conv_epilogue.py",
+              "tests/test_torch_conv3x3.py", "tests/test_torch_rgbd.py")
 K1_BRANCHES = ("warm", "fallback", "nan")
-# (m, t) checked but not timed: widths other than 40 and 80 (the run-time-m
-# instantiation, ragged and empty panels) and one pair at the extremes
-K1_ODD_SHAPES = ((12, 2), (48, 8), (60, 3), (7, 5), (1, 1), (40, 1), (80, 1))
 MAIN_PATHS = (
     # F, launches per LM iteration, reference cost, relative-ATE bar
     (100, 4, 177.25, 0.08),
@@ -421,44 +366,6 @@ SOLVER_ANCHORS = dict(
                   relative_ate=0.08710246922974232),
         exact=dict(cost=3419.97802734375, iterations=25,
                    relative_ate=0.059811932548156664)),
-)
-K2_D10_SHAPE = (80, 208, 400)   # a keyframe step of 10 drones (phase 13a)
-# phase 6b: (conv output shape, relu, pool), the main path's distinct
-# epilogue cases at 80 views of 208 x 400 (conv1a, conv1b, conv3b, convPb)
-EPILOGUE_CASES = (((80, 64, 208, 400), True, False),
-                  ((80, 64, 208, 400), True, True),
-                  ((80, 128, 52, 100), True, True),
-                  ((80, 65, 26, 50), False, False))
-# phase 6c: (N, C, K, H, W) of C1's distinct shapes in the three cells:
-# conv1b, conv2a (= conv2b), conv3a, conv3b, conv4a (= conv4b), convPa
-# (= convDa) for 5 views of 480 x 640 and for 80 and 40 views of 208 x 400
-C1_CASES = tuple(
-    (N, C, K, H >> d, W >> d)
-    for N, H, W in ((5, 480, 640), (80, 208, 400), (40, 208, 400))
-    for C, K, d in ((64, 64, 0), (64, 64, 1), (64, 128, 2), (128, 128, 2),
-                    (128, 128, 3), (128, 256, 3)))
-# K2 edge cases, each checked bit-exact against the plain version: (shape,
-# r, kind, 16-byte aligned). NaN cells, r = 0 and 16, W % 4 != 0, a map
-# smaller than its window, views 4 bytes off 16 (4-byte loads), maps wider
-# than one column tile, run-time radii on both vector widths, the 10-drone
-# demo's step with NaN cells.
-K2_EDGE_CASES = (
-    ((1, 64, 96), 4, "random", True), ((16, 64, 96), 4, "nan", True),
-    ((2, 40, 64), 4, "nan", True), ((2, 33, 65), 0, "random", True),
-    ((1, 7, 5), 4, "random", True), ((1, 20, 37), 16, "nan", True),
-    ((40, 208, 400), 4, "random", False), ((3, 40, 64), 4, "nan", False),
-    ((2, 40, 1200), 4, "random", True), ((2, 40, 64), 7, "nan", True),
-    ((1, 50, 1000), 16, "random", False), ((2, 40, 1000), 16, "nan", True),
-    (K2_D10_SHAPE, 4, "nan", True),
-)
-K3_RTOL = 1e-5
-K3_SHAPES = (
-    # N, D, Q: the path's query_batch (5) and query (1) on the configured
-    # 4096-slot DB and on the demo's 512; then edge shapes of the tiling:
-    # ragged N and 4-byte loads (D % 4 != 0) over two query groups of 8,
-    # and one full group of 8
-    (4096, 4096, 5), (4096, 4096, 1), (512, 4096, 5), (512, 4096, 1),
-    (1000, 130, 9), (4096, 4096, 8),
 )
 # The front-end path's anchors, from the JAX package on the CPU
 # (PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_frontend_entry.py
@@ -794,7 +701,8 @@ EST_DEPLOYED_ACPT = 100.0   # the shipped acpt_cost
 FE_IDX_SHARE = 0.95         # top-1 indices equal to the anchors
 FE_PRECISION_ATOL = 0.02
 FE_STEPS = 15
-RGBD_STEPS = 4               # phase 7b's steps of 5 RGB-D views
+RGBD_CELL = "swarm5_rgbd640.rgbd_keyframes"     # phase 7b's cell
+RGBD_STEPS = 4               # its steps after the driver's warm ones
 # The demos' anchors, from the JAX package on the CPU (PYTHONPATH=.
 # JAX_PLATFORMS=cpu python tools/demo_anchors.py): per demo the unique loop
 # keys (pair-canonical (drone, centiseconds) of both ends), the false ones,
@@ -1480,10 +1388,10 @@ K2_TRAIN_SHAPES = ((1, 64, 96), (16, 64, 96))
 D10_ATE_BAR = 0.15          # tests/test_scale10.py:25, held at 10 x 100
 DENSE_ITERS = 25            # bench.py:322
 D10_DEMO_STEPS = 15         # keyframe steps of the 10 x 30 image demo
+K2_D10_SHAPE = (80, 208, 400)   # their K2 batch: 80 views
 # Phase 14a: the measurement entry points. bf16 trunks against f32 at
-# tests/test_bf16_frontend.py's bars; K2 at the bench's front-end batches
-# (the bf16 rows at 4, 16, 64 views; the fused row's 4 stereo pairs, 8);
-# the CPU baseline and the bench at their own sizes with fewer repetitions
+# tests/test_bf16_frontend.py's bars; the CPU baseline and the bench at
+# their own sizes with fewer repetitions
 # (the script's time limit): the baseline's rows each timed once with no
 # warm-up call but torch_cpu_bt's, the bench's solver rows each timing
 # their first solve (BENCH_REPS), where the modules warm up and take
@@ -1494,6 +1402,8 @@ D10_DEMO_STEPS = 15         # keyframe steps of the 10 x 30 image demo
 BF16_HW, BF16_BATCH = (208, 400), 4
 BF16_BARS = dict(heat=0.03, desc_cos=0.995, kp_matched=0.9, kp_px=1.0,
                  global_cos=0.99, pairwise=0.02)
+# the bench's K2 batches: the bf16 rows' 4, 16, 64 views, the fused row's
+# 4 stereo pairs
 K2_BENCH_SHAPES = ((4, 208, 400), (8, 208, 400), (16, 208, 400),
                    (64, 208, 400))
 BENCH_REPS = dict(reps=1, big_reps=1, frontend_runs=1, warm_up=False)
@@ -1725,71 +1635,6 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def kernel_phase():
-    import torch
-
-    from omniswarm_torch import kernels
-    from omniswarm_torch.benchutil import (SOLVE_LEVELS, check_level,
-                                           level_bound_ms, random_level,
-                                           time_ms)
-    from omniswarm_torch.core.precision import highp
-    from omniswarm_torch.solver.fused_level import (
-        fused_reduction_level, fused_reduction_level_ref)
-
-    rng = np.random.default_rng(0)
-    shapes = list(dict.fromkeys((m, t) for _, _, m, ts in SOLVE_LEVELS
-                                for t in ts))
-    timed = [(m, t, "warm") for m, t in shapes] + [
-        r for r in K1_FULL_ROWS + K1_EXTRA_ROWS if r[2] != "warm"]
-    rows, odd = [], []
-    with highp():
-        for m, t in shapes + list(K1_ODD_SHAPES):
-            for branch in K1_BRANCHES:
-                A, B, X0 = (torch.from_numpy(v).cuda()
-                            for v in random_level(rng, 2 * t, m, branch))
-                err = check_level(A, B, X0)
-                cluster = kernels.fused_level_cluster(m, t)
-                if (m, t, branch) not in timed:
-                    odd.append(dict(m=m, t=t, branch=branch, cluster=cluster,
-                                    max_abs_err=err))
-                    continue
-                bound_ms, by = level_bound_ms(m, t)
-                row = dict(m=m, t=t, branch=branch, cluster=cluster,
-                           max_abs_err=err,
-                           ms=time_ms(
-                               lambda: kernels.fused_level(A, B, X0, 0.95)),
-                           bound_ms=bound_ms, bound_by=by)
-                if (m, t, branch) in K1_FULL_ROWS:
-                    row.update(
-                        wrapper_ms=time_ms(
-                            lambda: fused_reduction_level(A, B, X0)),
-                        plain_ms=time_ms(
-                            lambda: fused_reduction_level_ref(A, B, X0)))
-                print("kernel fused_reduction_level", json.dumps(row),
-                      flush=True)
-                rows.append(row)
-    print("K1 checked only", json.dumps(odd), flush=True)
-    return rows, odd
-
-
-def k1_per_iteration_of(rows, path):
-    """K1's kernel ms and bound per LM iteration of a main path: the kernel
-    phase's warm-branch time and bound of each level shape the path
-    launched, as often as it launched it, over its iterations."""
-    by_shape = {(r["m"], r["t"]): r for r in rows if r["branch"] == "warm"}
-    n = path["iterations"]
-    out = dict(launches=path["launches"] / n, ms=0.0, bound_ms=0.0)
-    for m, t, count in path["levels"]:
-        check((m, t) in by_shape, f"the path launched K1 at m={m} t={t}, "
-              f"a shape the kernel phase did not time")
-        out["ms"] += count * by_shape[m, t]["ms"] / n
-        out["bound_ms"] += count * by_shape[m, t]["bound_ms"] / n
-    name = path.get("path", f"main path F={path['F']}")
-    print(f"K1 per LM iteration {name}: {out['launches']:g} launches "
-          f"{out['ms']:.5f} ms (bound {out['bound_ms']:.5f} ms)", flush=True)
-    return out
-
-
 @contextlib.contextmanager
 def k1_recording():
     """Sets K1's counts to 0 and counts the (m, t) of every kernel launch
@@ -1830,6 +1675,48 @@ def k2_recording():
         yield shapes
     finally:
         kernels.grid_nms = launch
+
+
+def kernel_checks() -> dict:
+    """Phase 2: the cuda tests of CARD_TESTS in one pytest process; every
+    test passes and none skips. Returns the count and seconds, and per test
+    function the tests passed and the largest of each error it recorded."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        report = Path(tmp) / "card.xml"
+        run = subprocess.run(
+            [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m",
+             "cuda", "-p", "no:cacheprovider", "-o", "junit_family=xunit1",
+             f"--junitxml={report}", *CARD_TESTS],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        cases = (ET.parse(report).getroot().iter("testcase")
+                 if report.exists() else [])
+        by_test, outcomes = {}, collections.Counter()
+        for case in cases:
+            outcome = next((c.tag for c in case
+                            if c.tag in ("failure", "error", "skipped")),
+                           "passed")
+            outcomes[outcome] += 1
+            test = (case.get("classname").rsplit(".", 1)[-1] + "::"
+                    + case.get("name").split("[")[0])
+            row = by_test.setdefault(test, {"passed": 0})
+            row["passed"] += outcome == "passed"
+            for prop in case.iter("property"):
+                name, value = prop.get("name"), float(prop.get("value"))
+                row[name] = max(row.get(name, value), value)
+    seconds = time.perf_counter() - t0
+    print(f"card tests: pytest rc {run.returncode} {dict(outcomes)} in "
+          f"{seconds:.1f} s", flush=True)
+    ok = (run.returncode == 0 and outcomes["passed"] > 0
+          and set(outcomes) == {"passed"})
+    if not ok:
+        print(run.stdout[-6000:], run.stderr[-2000:], sep="\n", flush=True)
+    check(ok, f"the kernels' card checks: rc {run.returncode}, "
+          f"{dict(outcomes)}")
+    return dict(tests=outcomes["passed"], seconds=round(seconds, 1),
+                by_test=by_test)
 
 
 def check_k1_levels(F: int, levels, iters: int, D: int = 5) -> int:
@@ -2145,386 +2032,13 @@ def solver_phases(paths: dict) -> dict:
     out["batch"] = batch_phase(data, graph)
     out["covariances"] = covariance_phase(graph)
     out["gold"] = gold_phase(data, graph)
-    print(f"solver paths phase {time.perf_counter() - t0:.1f} s", flush=True)
-    return out
-
-
-def first_step_heat():
-    """SuperPoint heat maps (40, 208, 400) of the front-end path's first
-    keyframe step, on the card."""
-    import torch
-
-    from omniswarm_torch.core.precision import highp
-    from omniswarm_torch.frontend_entry import prepare
-    from omniswarm_torch.models.superpoint import pretrained_extractor
-
-    prep = prepare(kf_every=30)                 # renders step 0 only
-    views = [im for e in prep.steps[0] for pair in e[4] for im in pair]
-    imgs = torch.from_numpy(np.stack(views)).cuda()[:, None]
-    ext = pretrained_extractor("cuda")
-    with highp(), torch.no_grad():
-        heat, _ = ext.net(imgs.float() * (1.0 / 255.0))
-    return heat.contiguous()
-
-
-def k2_heat(rng, shape, kind: str, aligned: bool = True):
-    """u**8 heat on the card; ``nan`` plants NaN at an inner cell, a corner,
-    an edge and 3 random cells of each map; an unaligned map is a view that
-    starts 4 bytes off 16."""
-    import torch
-
-    h = (rng.uniform(size=shape) ** 8).astype(np.float32)
-    if kind == "nan":
-        B, H, W = shape
-        h[:, H // 2, W // 3] = h[:, 0, W - 1] = h[:, H - 1, W // 2] = np.nan
-        h[:, rng.integers(0, H, 3), rng.integers(0, W, 3)] = np.nan
-    heat = torch.from_numpy(h).cuda()
-    if not aligned:
-        view = torch.empty(heat.numel() + 1, device="cuda")[1:]
-        heat = view.view(shape).copy_(heat)
-    return heat
-
-
-def k2_phase():
-    import torch
-    import torch.nn.functional as F
-
-    from omniswarm_torch import kernels
-    from omniswarm_torch.benchutil import bound, time_cold_ms, time_ms
-    from omniswarm_torch.ops.frontend_kernels import grid_nms_ref
-
-    r = 4
-    rng = np.random.default_rng(1)
-    step = (40, 208, 400)
-    checked = []
-    for eshape, er, kind, aligned in K2_EDGE_CASES:
-        heat = k2_heat(rng, eshape, kind, aligned)
-        got = kernels.grid_nms(heat, er)
-        ref = grid_nms_ref(heat, er)
-        torch.cuda.synchronize()
-        check(torch.equal(got, ref), f"K2 disagrees at {eshape} r={er} "
-              f"{kind} aligned={aligned}: {int((got != ref).sum())} cells")
-        checked.append(dict(shape=list(eshape), r=er, kind=kind,
-                            aligned=aligned, vector_width=(
-                                kernels.grid_nms_vector_width(heat, got)),
-                            kept=int((got > 0).sum())))
-    print("K2 checked only", json.dumps(checked), flush=True)
-    # the D=5 step's 40 views, and the 10-drone demo's 80 (phase 13a)
-    inputs = {"random_u8": k2_heat(rng, step, "random"),
-              "superpoint_heat": first_step_heat(),
-              "random_u8_d10": k2_heat(rng, K2_D10_SHAPE, "random")}
-    want = dict(random_u8=step, superpoint_heat=step,
-                random_u8_d10=K2_D10_SHAPE)
-    rows = []
-    for name, heat in inputs.items():
-        shape = want[name]
-        check(tuple(heat.shape) == shape, f"K2 input {name} {heat.shape}")
-        got = kernels.grid_nms(heat, r)
-        ref = grid_nms_ref(heat, r)
-        torch.cuda.synchronize()
-        check(torch.equal(got, ref),
-              f"K2 disagrees on {name}: {int((got != ref).sum())} cells")
-        kept = int((got > 0).sum())
-        b_ms, by = bound(2 * heat.numel() * 4, heat.numel() * (4 * r + 1))
-        # 10 distinct maps (133 MB at B=40, > the 50 MB L2): each call
-        # reads HBM
-        cold = [torch.roll(heat, k, 0) for k in range(10)]
-        row = dict(
-            input=name, shape=list(shape), kept=kept, max_abs_err=float(
-                (got - ref).abs().max()),
-            ms=time_ms(lambda: kernels.grid_nms(heat, r)),
-            cold_ms=time_cold_ms(lambda h: kernels.grid_nms(h, r), cold),
-            plain_ms=time_ms(lambda: grid_nms_ref(heat, r)),
-            library_ms=time_ms(lambda: torch.where(
-                heat >= F.max_pool2d(heat[:, None], 2 * r + 1, 1, r)[:, 0],
-                heat, 0.0)),
-            bound_ms=b_ms, bound_by=by)
-        del cold
-        print("kernel grid_nms", json.dumps(row), flush=True)
-        rows.append(row)
-    return rows, checked
-
-
-def k3_inputs(rng, N: int, D: int, Q: int):
-    """Unit DB rows, noisy queries of random rows, a mask with ~30% of the
-    entries off and, for Q > 1, an all-masked last query. Planted ties
-    (equal rows, a query on them; the lower row must win), as
-    (query, winning row) pairs: rows N//2 and N-1 (query 0); for Q >= 4
-    also rows 3 and 4, which K3 gives to different CTAs (4-row tiles 0 and
-    1), and rows 8 and 9, inside one tile (queries 1 and 2)."""
-    db = rng.normal(size=(N, D)).astype(np.float32)
-    db /= np.linalg.norm(db, axis=1, keepdims=True)
-    pairs = [(N // 2, N - 1)] + ([(3, 4), (8, 9)] if Q >= 4 else [])
-    for a, b in pairs:
-        db[b] = db[a]
-    q = db[rng.integers(0, N, size=Q)] + rng.normal(0, 0.05, size=(Q, D))
-    for j, (a, _) in enumerate(pairs):
-        q[j] = db[a]
-    q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
-    mask = rng.uniform(size=(Q, N)) > 0.3
-    mask[:, [row for pair in pairs for row in pair]] = True
-    if Q > 1:
-        mask[-1] = False
-    return db, q, mask, [(j, a) for j, (a, _) in enumerate(pairs)]
-
-
-def k3_phase():
-    import torch
-
-    from omniswarm_torch import kernels
-    from omniswarm_torch.benchutil import bound, time_ms
-    from omniswarm_torch.core.precision import highp
-    from omniswarm_torch.ops.frontend_kernels import retrieval_top1_ref
-
-    rng = np.random.default_rng(2)
-    rows = []
-    with highp():
-        for N, D, Q in K3_SHAPES:
-            *arrays, ties = k3_inputs(rng, N, D, Q)
-            db, q, mask = (torch.from_numpy(v).cuda() for v in arrays)
-            idx, sim = kernels.retrieval_top1(db, q, mask)
-            ridx, rsim = retrieval_top1_ref(db, q, mask)
-            torch.cuda.synchronize()
-            check(torch.equal(idx, ridx),
-                  f"K3 indices differ at N={N} D={D} Q={Q}: "
-                  f"{idx.tolist()} vs {ridx.tolist()}")
-            for j, want in ties:
-                check(int(idx[j]) == want,
-                      f"K3 tie of query {j} broke to {int(idx[j])}, not "
-                      f"{want}, at N={N} D={D} Q={Q}")
-            fin = torch.isfinite(rsim)
-            check(torch.equal(fin, torch.isfinite(sim)),
-                  f"K3 masking differs at N={N} Q={Q}")
-            rel = float(((sim[fin] - rsim[fin]).abs()
-                         / rsim[fin].abs()).max())
-            check(rel <= K3_RTOL, f"K3 similarity rel err {rel:.2e}")
-            if Q > 1:
-                check(int(idx[-1]) == 0 and bool(torch.isneginf(sim[-1])),
-                      "K3 all-masked query is not (0, -inf)")
-            b_ms, by = bound(N * D * 4 + Q * D * 4 + Q * N + Q * 12,
-                             2.0 * Q * N * D)
-            neg = torch.tensor(float("-inf"), device="cuda")
-            row = dict(
-                N=N, D=D, Q=Q, max_abs_err=float(
-                    (sim[fin] - rsim[fin]).abs().max()), max_rel_err=rel,
-                ms=time_ms(lambda: kernels.retrieval_top1(db, q, mask)),
-                plain_ms=time_ms(lambda: retrieval_top1_ref(db, q, mask)),
-                library_ms=time_ms(lambda: torch.argmax(
-                    torch.where(mask, q @ db.T, neg), dim=1)),
-                bound_ms=b_ms, bound_by=by)
-            print("kernel retrieval_top1", json.dumps(row), flush=True)
-            rows.append(row)
-    return rows
-
-
-def epilogue_phase():
-    """Phase 6b: the conv epilogue kernel at EPILOGUE_CASES (see the
-    docstring)."""
-    import torch
-    import torch.nn.functional as F
-
-    from omniswarm_torch import kernels
-    from omniswarm_torch.benchutil import bound, time_ms
-    from omniswarm_torch.ops.frontend_kernels import conv_epilogue_ref
-
-    g = torch.Generator(device="cuda").manual_seed(3)
-    rows = []
-    for shape, relu, pool in EPILOGUE_CASES:
-        x = torch.randn(shape, generator=g, device="cuda")
-        b = 0.5 * torch.randn(shape[1], generator=g, device="cuda")
-        want = conv_epilogue_ref(x, b, relu, pool)
-        got = kernels.conv_epilogue(x.clone(), b, relu, pool)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"conv epilogue disagrees at {shape} "
-              f"relu={relu} pool={pool}: {int((got != want).sum())} cells")
-        width = kernels.conv_epilogue_vector_width(x, got, pool)
-        del got, want
-        b_ms, by = bound(4 * x.numel() * (1.25 if pool else 2), 0)
-        b4 = b.view(1, -1, 1, 1)
-
-        def library():
-            y = x.add_(b4)              # the cuDNN route's bias add
-            y = F.relu(y) if relu else y
-            return F.max_pool2d(y, 2, 2) if pool else y
-
-        # in place without the pool: x drifts by the bias a call, which
-        # times the same work
-        few = dict(reps=5, calls=10, warmup=2)
-        row = dict(shape=list(shape), relu=relu, pool=pool,
-                   vector_width=width,
-                   ms=time_ms(lambda: kernels.conv_epilogue(x, b, relu, pool),
-                              **few),
-                   plain_ms=time_ms(lambda: conv_epilogue_ref(x, b, relu,
-                                                              pool), **few),
-                   library_ms=time_ms(library, **few),
-                   bound_ms=b_ms, bound_by=by)
-        del x
-        print("kernel conv_epilogue", json.dumps(row), flush=True)
-        rows.append(row)
-    return rows
-
-
-def c1_phase():
-    """Phase 6c: C1 at C1_CASES (see the docstring)."""
-    import torch
-    import torch.nn.functional as F
-
-    from omniswarm_torch import kernels
-    from omniswarm_torch.benchutil import bound, time_ms
-    from omniswarm_torch.core.precision import highp
-    from omniswarm_torch.ops.frontend_kernels import (conv3x3_ref,
-                                                      conv3x3_weight)
-
-    def direct(x, w):
-        with torch.backends.cudnn.flags(enabled=False):
-            return F.conv2d(x, w, None, 1, 1)
-
-    g = torch.Generator(device="cuda").manual_seed(6)
-    rows = []
-    with highp():
-        for N, C, K, H, W in C1_CASES:
-            x = torch.randn((N, C, H, W), generator=g, device="cuda").relu_()
-            w = torch.randn((K, C, 3, 3), generator=g, device="cuda") * (
-                2.0 / (9 * C)) ** 0.5
-            wr = conv3x3_weight(w)
-            n = 1 if H == 480 else 2            # the check's views
-            got = kernels.conv3x3(x[:n], wr)
-            want = direct(x[:n], w)
-            tol = 2 * 9 * C * 2.0 ** -24 * direct(x[:n].abs(), w.abs())
-            again = kernels.conv3x3(x[:n], wr)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            check(bool((err <= tol).all()), f"C1 at {(N, C, K, H, W)} off "
-                  f"the direct convolution by {float(err.max())}")
-            check(torch.equal(got, again), f"C1 at {(N, C, K, H, W)}: two "
-                  f"calls differ")
-            row = dict(shape=[N, C, K, H, W], tile=kernels.conv3x3_tile(H, W),
-                       max_abs_err=float(err.max()),
-                       max_err_share_of_bound=float((err / tol).nan_to_num(
-                           0.0).max()),
-                       max_abs_err_heuristic=float(
-                           (got - conv3x3_ref(x[:n], w)).abs().max()))
-            del got, want, tol, again, err
-            few = dict(reps=3, calls=2, warmup=1)
-            row.update(ms=time_ms(lambda: kernels.conv3x3(x, wr), **few),
-                       plain_ms=time_ms(lambda: conv3x3_ref(x, w), **few))
-            torch.backends.cudnn.benchmark = True
-            try:
-                row["library_ms"] = time_ms(
-                    lambda: F.conv2d(x, w, None, 1, 1), **few)
-            finally:
-                torch.backends.cudnn.benchmark = False
-            row["bound_ms"], row["bound_by"] = bound(
-                4 * (x.numel() + w.numel() + N * K * H * W),
-                2 * N * H * W * C * K * 9)
-            del x, w, wr
-            print("kernel conv3x3", json.dumps(row), flush=True)
-            rows.append(row)
-    return rows
-
-
-def rgbd_phase() -> dict:
-    """Phase 7b: the RGB-D keyframes' entry point with C1 (see the
-    docstring)."""
-    import torch
-
-    from omniswarm_torch.config import FrontendParams
-    from omniswarm_torch.models import superpoint
-    from omniswarm_torch.ops.frontend_kernels import (
-        conv3x3, conv3x3_ref, conv_epilogue, conv_epilogue_ref, grid_nms,
-        grid_nms_ref)
-    from omniswarm_torch.sim.image_world import render_shapes
-    from omniswarm_torch.swarm.loop_cam import CameraIntrinsics, LoopCam
-
-    H, W, D = 480, 640, 5
-    rng = np.random.default_rng(8)
-    steps = []
-    for s in range(RGBD_STEPS):
-        entries = []
-        for d in range(D):
-            gray = (render_shapes(rng, H, W, n_shapes=12)[0] * 255).astype(
-                np.uint8)
-            depth = np.kron(rng.uniform(500, 12000, (H // 32, W // 32)),
-                            np.ones((32, 32))).astype(np.uint16)
-            holes = np.kron(rng.random((H // 8, W // 8)) < 0.1,
-                            np.ones((8, 8), bool))
-            depth[holes] = 0
-            entries.append((d, 2 * s, 0.1 * s, np.eye(4, dtype=np.float32),
-                            gray, depth))
-        steps.append(entries)
-    cam = LoopCam(params=FrontendParams(height=H, width=W),
-                  intrinsics=CameraIntrinsics(385.0, 385.0, 320.0, 240.0))
-    cam.on_depth_frames_batch(steps[0])                       # warm-up
-
-    def counts():
-        return (conv3x3.launches, conv_epilogue.launches, grid_nms.launches,
-                conv3x3_ref.calls + conv_epilogue_ref.calls
-                + grid_nms_ref.calls)
-
-    before = counts()
-    fused, valid, ms = [], [], []
-    for entries in steps:
-        t0 = time.perf_counter()
-        fused.append(cam.on_depth_frames_batch(entries))
-        ms.append(1e3 * (time.perf_counter() - t0))
-        valid.append(cam.last_kp_valid)
-    c1, epilogues, k2, plain_calls = (a - b for a, b in zip(counts(),
-                                                             before))
-    check(plain_calls == 0, "a plain front-end kernel version ran on the "
-          "RGB-D path")
-    check(c1 == 9 * RGBD_STEPS and epilogues == 12 * RGBD_STEPS
-          and k2 == RGBD_STEPS, f"C1 / epilogue / K2 launched {c1} / "
-          f"{epilogues} / {k2} times in {RGBD_STEPS} RGB-D steps, expected "
-          f"9 / 12 / 1 a step")
-
-    fused_rule = superpoint.fused_epilogue
-    superpoint.fused_epilogue = lambda x: False
-    try:
-        plain, plain_valid = [], []
-        for entries in steps:
-            plain.append(cam.on_depth_frames_batch(entries))
-            plain_valid.append(cam.last_kp_valid)
-    finally:
-        superpoint.fused_epilogue = fused_rule
-    shares, desc_err, lm_err, gd_err, lifted = [], 0.0, 0.0, 0.0, []
-    for kfs, kv, pkfs, pkv in zip(fused, valid, plain, plain_valid):
-        lifted.append((sum(int(k.valid.sum()) for k in kfs),
-                       sum(int(k.valid.sum()) for k in pkfs)))
-        for b, (k, p) in enumerate(zip(kfs, pkfs)):
-            a, r = torch.from_numpy(k.kp_xy[kv[b]]), torch.from_numpy(
-                p.kp_xy[pkv[b]])
-            dist = torch.cdist(a, r,
-                               compute_mode="donot_use_mm_for_euclid_dist")
-            near_a, near_r = dist.min(1), dist.min(0)
-            shares += [float((near_a.values <= 1e-3).float().mean()),
-                       float((near_r.values <= 1e-3).float().mean())]
-            same = (near_a.values <= 1e-3).numpy()
-            ia = np.flatnonzero(kv[b])[same]
-            ir = np.flatnonzero(pkv[b])[near_a.indices.numpy()[same]]
-            desc_err = max(desc_err, float(np.abs(
-                k.local_desc[ia] - p.local_desc[ir]).max(initial=0.0)))
-            both = k.valid[ia] & p.valid[ir]
-            lm_err = max(lm_err, float(np.abs(
-                k.landmarks_3d[ia[both]] - p.landmarks_3d[ir[both]]).max(
-                    initial=0.0)))
-            gd_err = max(gd_err, float(np.abs(k.global_desc
-                                              - p.global_desc).max()))
-    out = dict(steps=RGBD_STEPS, views=D * RGBD_STEPS, c1_launches=c1,
-               epilogue_launches=epilogues, k2_launches=k2,
-               keypoints_same_share=min(shares), desc_max_abs_err=desc_err,
-               landmark_max_abs_err_m=lm_err, global_desc_max_abs_err=gd_err,
-               lifted=lifted, depth_lookups=cam.depth_lookups,
-               depth_rejected=cam.depth_rejected,
-               step_ms=[round(v, 3) for v in ms])
-    print("rgbd path", json.dumps(out), flush=True)
-    check(min(shares) >= 0.99 and desc_err <= 1e-4 and lm_err <= 1e-3
-          and gd_err <= 1e-5
-          and all(abs(f - p) <= 0.01 * p for f, p in lifted),
-          f"the RGB-D path on C1 departs from the plain path: {out}")
     return out
 
 
 def frontend_phase(prep):
+    import torch
+
+    from omniswarm_torch import kernels
     from omniswarm_torch.frontend_entry import (
         checksum_faults, frontend_entry, keyframe_checksums, summary)
     from omniswarm_torch.ops.frontend_kernels import (
@@ -2535,21 +2049,40 @@ def frontend_phase(prep):
     conv3x3.launches = 0
     grid_nms_ref.calls = retrieval_top1_ref.calls = 0
     conv_epilogue_ref.calls = conv3x3_ref.calls = 0
-    res = frontend_entry(device="cuda", prep=prep)
+    launch, first = kernels.grid_nms, []
+
+    def keep_first(heat, nms_dist):
+        """K2's launch; the first step's heat maps and output kept."""
+        out = launch(heat, nms_dist)
+        if not first:
+            first.append((heat.clone(), nms_dist, out.clone()))
+        return out
+
+    kernels.grid_nms = keep_first
+    try:
+        res = frontend_entry(device="cuda", prep=prep)
+    finally:
+        kernels.grid_nms = launch
     k2, k3 = grid_nms.launches, retrieval_top1.launches
     epilogues, c1 = conv_epilogue.launches, conv3x3.launches
+    plain_calls = (grid_nms_ref.calls + retrieval_top1_ref.calls
+                   + conv_epilogue_ref.calls + conv3x3_ref.calls)
+    heat, nms_dist, got = first[0]
+    k2_heat_equal = torch.equal(got, grid_nms_ref(heat, nms_dist))
     out = summary(res)
     same = int((res.top1_idx == np.asarray(FE_ANCHORS["top1_idx"])).sum())
     faults, diffs = checksum_faults(keyframe_checksums(res.keyframes),
                                     FE_ANCHORS, 400, 208)
     out.update(k2_launches=k2, k3_launches=k3, epilogue_launches=epilogues,
-               c1_launches=c1,
+               c1_launches=c1, k2_heat_shape=list(heat.shape),
+               k2_heat_bit_equal=k2_heat_equal,
                top1_idx_equal=same, anchor_diffs=diffs,
                step_ms=[round(float(v), 3) for v in res.step_ms])
     print("frontend path", json.dumps(out), flush=True)
-    check(grid_nms_ref.calls == 0 and retrieval_top1_ref.calls == 0
-          and conv_epilogue_ref.calls == 0 and conv3x3_ref.calls == 0,
+    check(plain_calls == 0,
           "a plain front-end kernel version ran on the card path")
+    check(k2_heat_equal, "K2 on the first step's SuperPoint heat maps "
+          "differs from its plain version")
     check(k2 == FE_STEPS and k3 == FE_STEPS,
           f"K2/K3 launched {k2}/{k3} times, expected {FE_STEPS} each")
     check(epilogues == 12 * FE_STEPS,
@@ -2576,9 +2109,55 @@ def frontend_phase(prep):
     return out
 
 
+def rgbd_phase() -> dict:
+    """Phase 7b: the RGB-D keyframes' entry point through its cell's driver
+    (see the docstring)."""
+    import torch
+
+    from benchmark.run import cell, load_module
+    from omniswarm_torch.ops.frontend_kernels import (
+        conv3x3, conv3x3_ref, conv_epilogue, conv_epilogue_ref, grid_nms,
+        grid_nms_ref, retrieval_top1, retrieval_top1_ref)
+
+    c = cell(ROOT, RGBD_CELL)
+    drv = load_module(c.driver, "chip_smoke_rgbd_driver").Driver(
+        c.config, c.traffic, 0, torch.device("cuda"))
+    conv3x3.launches = conv_epilogue.launches = grid_nms.launches = 0
+    retrieval_top1.launches = 0
+    conv3x3_ref.calls = conv_epilogue_ref.calls = grid_nms_ref.calls = 0
+    retrieval_top1_ref.calls = 0
+    ms, counts = [], collections.Counter()
+    for _ in range(RGBD_STEPS):
+        t0 = time.perf_counter()
+        counts.update(drv.unit())
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = dict(c1=conv3x3.launches, epilogue=conv_epilogue.launches,
+                    k2=grid_nms.launches, k3=retrieval_top1.launches)
+    plain_calls = (conv3x3_ref.calls + conv_epilogue_ref.calls
+                   + grid_nms_ref.calls + retrieval_top1_ref.calls)
+    drv.release()
+    readings = drv.check()
+    out = dict(counts, launches=launches, plain_calls=plain_calls,
+               checks={k: [readings.get(k, math.inf), limit]
+                       for k, limit in c.limits.items()},
+               step_ms=[round(v, 3) for v in ms])
+    print("rgbd path", json.dumps(out), flush=True)
+    check(plain_calls == 0, "a plain front-end kernel version ran on the "
+          "RGB-D path")
+    want = dict(c1=9, epilogue=12, k2=1, k3=1)
+    check(launches == {k: n * RGBD_STEPS for k, n in want.items()},
+          f"RGB-D launches {launches} in {RGBD_STEPS} steps, expected "
+          f"{want} a step")
+    check(all(math.isfinite(v) and v <= limit
+              for v, limit in out["checks"].values()),
+          f"the RGB-D path departs from its reference: {out['checks']}")
+    return out
+
+
 def estimator_checks_k1(levels) -> list:
-    """K1 at each level shape the estimator path launched that the kernel
-    phase did not check, on all three branches, against its plain version
+    """K1 at each level shape a path launched outside SOLVE_LEVELS (which
+    the cuda tests check), on all three branches, against its plain version
     (these launches are not counted on the path)."""
     import torch
 
@@ -2587,7 +2166,6 @@ def estimator_checks_k1(levels) -> list:
     from omniswarm_torch.core.precision import highp
 
     seen = {(m, t) for _, _, m, ts in SOLVE_LEVELS for t in ts}
-    seen |= set(K1_ODD_SHAPES)
     rng = np.random.default_rng(1)
     rows = []
     with highp():
@@ -3837,11 +3415,11 @@ def tier10_demo() -> dict:
                 session_s=res["session_s"], solve_s=res["solve_s"])
 
 
-def tier10_phase(rows) -> dict:
+def tier10_phase() -> dict:
     """Phase 13a: the 10-drone tier and the loop-dense window (see the
     docstring)."""
     t0 = time.perf_counter()
-    out, per_iteration = {}, {}
+    out = {}
     out["d10_100"] = tier10_solve("d10_100", SOLVER_ANCHORS["d10_100"], 10,
                                   100, 3, 50, k1=False)
     check(out["d10_100"]["relative_ate"] < D10_ATE_BAR,
@@ -3849,14 +3427,9 @@ def tier10_phase(rows) -> dict:
           f"{D10_ATE_BAR}")
     out["d10_1024"] = tier10_solve("d10_1024", SOLVER_ANCHORS["d10_1024"],
                                    10, 1024, 0, 20, k1=True)
-    per_iteration["d10_1024"] = k1_per_iteration_of(rows, out["d10_1024"])
-    out["dense"] = dense_tool(rows)
-    for name, path in out["dense"].items():
-        if path["launches"]:
-            per_iteration[f"dense_{name}"] = k1_per_iteration_of(rows, path)
+    out["dense"] = dense_tool()
     out["solve_seconds"] = time.perf_counter() - t0
     out["demo"] = tier10_demo()
-    out["k1_per_iteration"] = per_iteration
     out["seconds"] = time.perf_counter() - t0
     print("tier10", json.dumps(out), flush=True)
     return out
@@ -3915,54 +3488,15 @@ def bf16_parity() -> dict:
     return out
 
 
-def k2_bench_phase() -> list:
-    """Phase 14a (b): K2 at the bench's front-end shapes, bit-exact against
-    its plain version on random u**8 heat and with NaN cells; CUDA-event
-    times warm and cold (distinct maps over 3x the 50 MB L2), the plain
-    version, the library call and the bytes bound."""
-    import torch
-    import torch.nn.functional as F
-
-    from omniswarm_torch import kernels
-    from omniswarm_torch.benchutil import bound, time_cold_ms, time_ms
-    from omniswarm_torch.ops.frontend_kernels import grid_nms_ref
-
-    r, rng, rows = 4, np.random.default_rng(3), []
-    for shape in K2_BENCH_SHAPES:
-        for kind in ("nan", "random"):
-            heat = k2_heat(rng, shape, kind)
-            got, ref = kernels.grid_nms(heat, r), grid_nms_ref(heat, r)
-            torch.cuda.synchronize()
-            check(torch.equal(got, ref), f"K2 disagrees at {shape} {kind}: "
-                  f"{int((got != ref).sum())} cells")
-        b_ms, by = bound(2 * heat.numel() * 4, heat.numel() * (4 * r + 1))
-        cold = [torch.roll(heat, k, 0) for k in range(
-            max(10, math.ceil(150e6 / (heat.numel() * 4))))]
-        row = dict(
-            input="random_u8_bench", shape=list(shape), kept=int(
-                (got > 0).sum()), max_abs_err=0.0,
-            ms=time_ms(lambda: kernels.grid_nms(heat, r)),
-            cold_ms=time_cold_ms(lambda h: kernels.grid_nms(h, r), cold),
-            plain_ms=time_ms(lambda: grid_nms_ref(heat, r)),
-            library_ms=time_ms(lambda: torch.where(
-                heat >= F.max_pool2d(heat[:, None], 2 * r + 1, 1, r)[:, 0],
-                heat, 0.0)),
-            bound_ms=b_ms, bound_by=by)
-        del cold
-        print("kernel grid_nms", json.dumps(row), flush=True)
-        rows.append(row)
-    return rows
-
-
 def bench_phase() -> dict:
-    """Phase 14a (c): the CPU baseline (CPU_BASELINE_ITERS iterations,
+    """Phase 14a (b): the CPU baseline (CPU_BASELINE_ITERS iterations,
     CPU_BASELINE_REPS repetition, warm_up=False), then
     python -m omniswarm_torch.bench's run at its own sizes with BENCH_REPS,
     printed as one "bench" line: every key of BENCH_r05.json's parsed, no
     *_error key, kf1024_fused_cost_delta within the 2e-3 bar, K1 and K2
     launched in the rows that run them, no plain version; each K1 (m, t)
-    the kernel phase did not check is checked after the run, and K2 ran
-    only at K2_BENCH_SHAPES."""
+    outside SOLVE_LEVELS is checked after the run, and K2 ran only at
+    K2_BENCH_SHAPES."""
     from omniswarm_torch import bench, cpu_baseline
     from omniswarm_torch.ops.frontend_kernels import (grid_nms, grid_nms_ref,
                                                       retrieval_top1)
@@ -4009,7 +3543,7 @@ def bench_phase() -> dict:
 
 
 def online_phase() -> dict:
-    """Phase 14a (d): python -m omniswarm_torch.online_window's session at
+    """Phase 14a (c): python -m omniswarm_torch.online_window's session at
     1,024 keyframes and 2,000 loops with ONLINE_SOLVES live solves (the
     fast build, never a fallback), each anchored solve held to
     ONLINE_ANCHORS by online_window.held_to; K1 launched, its new level
@@ -4049,10 +3583,10 @@ def online_phase() -> dict:
 
 
 def measurement_phase() -> dict:
-    """Phase 14a: (a) bf16 parity, (b) K2 at the bench's shapes, (c) the
-    CPU baseline and the bench, (d) the online window."""
+    """Phase 14a: (a) bf16 parity, (b) the CPU baseline and the bench, (c)
+    the online window."""
     t0 = time.perf_counter()
-    out = dict(bf16=bf16_parity(), k2_rows=k2_bench_phase())
+    out = dict(bf16=bf16_parity())
     out["bench"] = bench_phase()
     out["online"] = online_phase()
     out["seconds"] = time.perf_counter() - t0
@@ -4063,7 +3597,7 @@ def measurement_phase() -> dict:
     return out
 
 
-def sweep_phase(rows) -> dict:
+def sweep_phase() -> dict:
     """Phase 15a (a): python -m omniswarm_torch.tools.window_scale_sweep's
     rows at every F of SWEEP_FRAMES, one timed solve a size (the tool takes
     the median of 3): K1 at SOLVE_LEVELS's shapes for (F, 5) once an
@@ -4076,7 +3610,7 @@ def sweep_phase(rows) -> dict:
     from omniswarm_torch.tools.window_scale_sweep import sweep_row
 
     t0 = time.perf_counter()
-    out, per_iteration = {}, {}
+    out = {}
     for F in SWEEP_FRAMES:
         big = F == SWEEP_REPEATED
         with k1_recording():
@@ -4105,14 +3639,10 @@ def sweep_phase(rows) -> dict:
         if big:
             check(row["repeat_equal"], f"sweep F={F}: two solves differ")
         out[F] = row
-        per_iteration[f"window_scale_{F}"] = k1_per_iteration_of(rows, dict(
-            F=F, iterations=it, launches=row["k1_launches"],
-            levels=row["k1_levels"], path=f"window scale F={F}"))
-    return dict(rows=out, k1_per_iteration=per_iteration,
-                seconds=time.perf_counter() - t0)
+    return dict(rows=out, seconds=time.perf_counter() - t0)
 
 
-def dense_tool(rows) -> dict:
+def dense_tool() -> dict:
     """Phase 13a (b): the loop-dense window through
     python -m omniswarm_torch.tools.bench_dense_loops (exact=True, each run's
     unperturbed solve timed and repeated), each PCG run and the exact one
@@ -4301,10 +3831,10 @@ def bus_results(testers, spy) -> dict:
     return out
 
 
-def tools_phase(rows) -> dict:
+def tools_phase() -> dict:
     """Phase 15a: the repository's remaining tools (see the docstring)."""
     t0 = time.perf_counter()
-    out = dict(sweep=sweep_phase(rows))
+    out = dict(sweep=sweep_phase())
     out["replay"] = replay_phase()
     testers, spy = bus_processes()
     out["textured"] = textured_phase()
@@ -4489,202 +4019,48 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    t0 = time.perf_counter()
-    rows, k1_checked = kernel_phase()
-    print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
+    seconds = {"kernel build": round(build_s, 1)}
 
-    # warm-up: library handles and allocator, outside the counted run
-    from omniswarm_torch.entry import entry
-    entry(device="cuda", max_iterations=2)
-
-    paths, k1_per_iteration = {}, {}
-    for F, per_iter, ref_cost, ate_bar in MAIN_PATHS:
+    def phase(name: str, fn, *args):
         t0 = time.perf_counter()
-        paths[F] = main_path_phase(F, per_iter, ref_cost, ate_bar)
-        k1_per_iteration[F] = k1_per_iteration_of(rows, paths[F])
-        print(f"main path F={F} phase {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"{name} phase {seconds[name]:.1f} s", flush=True)
+        return out
 
-    solver = solver_phases(paths)
-    k1_per_iteration["pcg_1024"] = k1_per_iteration_of(rows, solver["pcg"])
-
-    t0 = time.perf_counter()
-    k2_rows, k2_checked = k2_phase()
-    k3_rows = k3_phase()
-    print(f"K2/K3 phases {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    epilogue_rows = epilogue_phase()
-    print(f"conv epilogue phase {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    c1_rows = c1_phase()
-    print(f"C1 phase {time.perf_counter() - t0:.1f} s", flush=True)
+    from omniswarm_torch.entry import entry
     from omniswarm_torch.frontend_entry import prepare
 
-    t0 = time.perf_counter()
-    prep = prepare()              # the front-end path's and 9a's views
-    fe = frontend_phase(prep)
-    print(f"front-end path phase {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    rgbd = rgbd_phase()
-    print(f"RGB-D path phase {time.perf_counter() - t0:.1f} s", flush=True)
-    est = estimator_phase()
-    print(f"estimator path phase {est['seconds']:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    demos = demos_phase(prep)
-    print(f"demos phase {time.perf_counter() - t0:.1f} s", flush=True)
-    layouts = layouts_phase()
-    print(f"layouts phase {layouts['seconds']:.1f} s: K1/K2/K3 launches "
-          f"{layouts['launches']['k1']}/{layouts['launches']['k2']}/"
-          f"{layouts['launches']['k3']} on the layouts' path", flush=True)
-    node = node_phase(demos["feature_reports"])
-    print(f"node phase {node['seconds']:.1f} s: K1/K2/K3 launches "
-          f"{node['paced']['k1_launches']}/{node['k2_launches']}/"
-          f"{node['k3_launches']} on the node's threaded path", flush=True)
+    # library handles and allocator, outside the counted runs
+    phase("warm-up", lambda: entry(device="cuda", max_iterations=2))
+    card_tests = phase("kernel checks", kernel_checks)
+    paths = {F: phase(f"main path F={F}", main_path_phase, F, per_iter,
+                      ref_cost, ate_bar)
+             for F, per_iter, ref_cost, ate_bar in MAIN_PATHS}
+    solver = phase("solver paths", solver_phases, paths)
+    prep = phase("front-end render", prepare)  # phase 7's and 9a's views
+    frontend = phase("front-end path", frontend_phase, prep)
+    rgbd = phase("RGB-D path", rgbd_phase)
+    estimator = phase("estimator path", estimator_phase)
+    demos = phase("demos", demos_phase, prep)
+    phase("layouts", layouts_phase)
+    phase("node", node_phase, demos["feature_reports"])
+    phase("training", training_phase, card)
+    phase("tier-10", tier10_phase)
+    phase("measurement", measurement_phase)
+    phase("tools", tools_phase)
+    phase("reference tools", reference_tools_phase)
 
-    t0 = time.perf_counter()
-    train = training_phase(card)
-    print(f"training phase {train['seconds']:.1f} s: K1/K2/K3 launches "
-          f"{train['launches']['k1']}/{train['launches']['k2']}/"
-          f"{train['launches']['k3']} on the training path", flush=True)
-
-    t0 = time.perf_counter()
-    tier10 = tier10_phase(rows)
-    k1_per_iteration.update(tier10["k1_per_iteration"])
-    print(f"tier-10 phase {time.perf_counter() - t0:.1f} s (solves "
-          f"{tier10['solve_seconds']:.1f} s)", flush=True)
-    measured = measurement_phase()
-    tools = tools_phase(rows)
-    k1_per_iteration.update(tools["sweep"]["k1_per_iteration"])
-    last = reference_tools_phase()
-
-    main = next(r for r in rows
-                if (r["m"], r["t"], r["branch"]) == (40, 32, "warm"))
-    k2_main = next(r for r in k2_rows if r["input"] == "superpoint_heat")
-    k3_main = next(r for r in k3_rows if (r["N"], r["Q"]) == (4096, 5))
-    kernels_line = {"kernels": [{
-        "name": "fused_reduction_level",
-        "route": "cuda",
-        "source": "omniswarm_torch/csrc/fused_level.cu",
-        "replaces": "omniswarm_tpu/solver/pallas_level.py:89 "
-                    "fused_reduction_level",
-        "launches": paths[100]["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows + k1_checked
-                           + est["k1_checked"]
-                           + node["paced"]["k1_checked"]
-                           + measured["bench"]["k1_checked"]
-                           + measured["online"]["k1_checked"]
-                           + last["comm"]["k1_checked"]),
-        "ms": main["ms"],
-        "kernel_ms": main["ms"],
-        "wrapper_ms": main["wrapper_ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": None,
-        "launches_f1024": paths[1024]["launches"],
-        "launches_pcg_f1024": solver["pcg"]["launches"],
-        "launches_estimator": est["k1_launches"],
-        "launches_demo": demos["image"]["k1_launches"],
-        "launches_node": node["paced"]["k1_launches"],
-        "launches_train": train["launches"]["k1"],
-        "launches_d10_100": tier10["d10_100"]["launches"],
-        "launches_d10_1024": tier10["d10_1024"]["launches"],
-        "launches_dense_loops": {k: v["launches"]
-                                 for k, v in tier10["dense"].items()},
-        "launches_demo_d10": tier10["demo"]["launches"]["k1"],
-        "launches_bench": {k: v["k1"] for k, v in
-                           measured["bench"]["launches"].items()},
-        "launches_online_window": measured["online"]["k1_launches"],
-        "launches_window_scale": {F: r["k1_launches"] for F, r in
-                                  tools["sweep"]["rows"].items()},
-        "levels_window_scale": {F: r["k1_levels"] for F, r in
-                                tools["sweep"]["rows"].items()},
-        "launches_textured_eval": tools["textured"]["launches"]["k1"],
-        "launches_drift_probe": last["drift"]["k1_launches"],
-        "launches_comm_model": last["comm"]["k1_launches"],
-        "levels_comm_model": last["comm"]["k1_levels"],
-        "levels_bench": measured["bench"]["k1_levels"],
-        "levels_online_window": measured["online"]["k1_levels"],
-        "shapes": rows,
-        "checked": k1_checked + est["k1_checked"]
-        + node["paced"]["k1_checked"] + measured["bench"]["k1_checked"]
-        + measured["online"]["k1_checked"] + last["comm"]["k1_checked"],
-        "per_iteration": k1_per_iteration,
-        "main_paths": list(paths.values()),
-    }, {
-        "name": "grid_nms",
-        "route": "cuda",
-        "source": "omniswarm_torch/csrc/grid_nms.cu",
-        "replaces": "omniswarm_tpu/ops/pallas_kernels.py:73 grid_nms_pallas",
-        "launches": fe["k2_launches"],
-        "launches_demo": demos["image"]["k2_launches"],
-        "launches_node": node["k2_launches"],
-        "launches_train": train["launches"]["k2"],
-        "launches_demo_d10": tier10["demo"]["launches"]["k2"],
-        "launches_bench": {k: v["k2"] for k, v in
-                           measured["bench"]["launches"].items()},
-        "shapes_bench": measured["bench"]["k2_shapes"],
-        "launches_textured_eval": tools["textured"]["launches"]["k2"],
-        "shapes_textured_eval": tools["textured"]["k2_shapes"],
-        "launches_online_window": measured["online"]["k2_launches"],
-        "launches_convert": last["convert"]["launches"]["k2"],
-        "max_abs_err": max(r["max_abs_err"] for r in k2_rows
-                           + train["k2_checked"] + measured["k2_rows"]
-                           + last["convert"]["k2_checked"]),
-        "ms": k2_main["ms"],
-        "cold_ms": k2_main["cold_ms"],
-        "plain_ms": k2_main["plain_ms"],
-        "bound_ms": k2_main["bound_ms"],
-        "bound_by": k2_main["bound_by"],
-        "library_ms": k2_main["library_ms"],
-        "shapes": k2_rows + measured["k2_rows"],
-        "checked": k2_checked + train["k2_checked"]
-        + last["convert"]["k2_checked"],
-    }, {
-        "name": "retrieval_top1",
-        "route": "cuda",
-        "source": "omniswarm_torch/csrc/retrieval_top1.cu",
-        "replaces": "omniswarm_tpu/ops/pallas_kernels.py:113 "
-                    "retrieval_top1_pallas",
-        "launches": fe["k3_launches"],
-        "launches_demo": demos["image"]["k3_launches"],
-        "launches_node": node["k3_launches"],
-        "launches_train": train["launches"]["k3"],
-        "launches_demo_d10": tier10["demo"]["launches"]["k3"],
-        "launches_bench": measured["bench"]["k3_launches"],
-        "launches_online_window": measured["online"]["k3_launches"],
-        "launches_textured_eval": tools["textured"]["launches"]["k3"],
-        "launches_reference_tools": last["convert"]["launches"]["k3"],
-        "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
-        "ms": k3_main["ms"],
-        "plain_ms": k3_main["plain_ms"],
-        "bound_ms": k3_main["bound_ms"],
-        "bound_by": k3_main["bound_by"],
-        "library_ms": k3_main["library_ms"],
-        "shapes": k3_rows,
-        "frontend_path": fe,
-    }, {
-        "name": "conv_epilogue",
-        "route": "cuda",
-        "source": "omniswarm_torch/csrc/conv_epilogue.cu",
-        "replaces": None,
-        "launches": fe["epilogue_launches"],
-        "shapes": epilogue_rows,
-    }, {
-        "name": "conv3x3",
-        "route": "cuda",
-        "source": "omniswarm_torch/csrc/conv3x3.cu",
-        "replaces": None,
-        "launches": rgbd["c1_launches"],
-        "launches_stereo": fe["c1_launches"],
-        "rgbd_path": rgbd,
-        "shapes": c1_rows,
-    }]}
+    print("kernels", json.dumps(dict(card_tests, launches={
+        **{f"main path F={F} K1": paths[F]["launches"] for F in paths},
+        "estimator K1": estimator["k1_launches"],
+        "front-end K2/K3/E1/C1": [frontend[f"{k}_launches"] for k in
+                                  ("k2", "k3", "epilogue", "c1")],
+        "RGB-D C1/E1/K2/K3": list(rgbd["launches"].values())})),
+        flush=True)
     print("solver paths", json.dumps(solver), flush=True)
+    print("phase seconds", json.dumps(seconds), flush=True)
     print(f"chip_smoke {time.perf_counter() - start:.1f} s", flush=True)
-    print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """Timing, bounds, counters and level inputs shared by the port's on-card
 scripts.
 
-``chip_smoke.py`` and ``omniswarm_torch.bench_level`` time kernels with
-``time_ms`` (inputs warm in L2) and ``time_cold_ms`` (inputs read from
-HBM), state the least time the card could take with ``bound``, and build
-fused-level (K1) inputs with ``random_level``. ``omniswarm_torch.bench``
+``omniswarm_torch.bench_kernels`` times kernels with ``time_ms`` (inputs
+warm in L2) and ``time_cold_ms`` (inputs read from HBM) and states the
+least time the card could take with ``bound``; it, the ``cuda`` tests and
+``chip_smoke.py`` build fused-level (K1) inputs with ``random_level`` at
+the solves' level shapes (``SOLVE_LEVELS``). ``omniswarm_torch.bench``
 (the counterpart of the root ``bench.py``) takes its constants,
 ``median_time``, ``pert``, the card's peaks (``card_peaks``) and the
 operation counter ``count_ops`` from here; the tools of

@@ -3,8 +3,7 @@
 The plain PyTorch version is held against the JAX Pallas kernel (interpret
 mode on CPU) and the XLA level body at rtol = atol = 2e-4, as in
 tests/test_pallas_level.py. The CUDA kernel is held against the plain
-version on a card (marked ``cuda``; skips here), at the path's level shapes,
-across clusters of CTAs and at widths other than 40 and 80.
+version on a card by tests/test_torch_kernels_card.py.
 """
 import jax
 import jax.numpy as jnp
@@ -135,52 +134,3 @@ def test_kernel_wrapper_rejects_misaligned_blocks():
         kernels.fused_level(A, shifted[:7], X0, 0.95)
     with pytest.raises(ValueError, match="16 bytes"):
         kernels.fused_level(A, A[:7], shifted[:4], 0.95)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,t,warm", [
-    (40, 32, "warm"), (80, 128, "warm"), (40, 32, "garbage"), (40, 4, "nan"),
-    # clusters of 8 (and 4) CTAs per pair at the path's small t
-    (80, 4, "garbage"), (80, 16, "warm"),
-    # run-time widths, ragged and empty panels, one pair
-    (12, 2, "warm"), (48, 8, "nan"), (60, 3, "garbage"), (1, 1, "warm"),
-    (80, 1, "warm")])
-def test_kernel_matches_plain_on_card(cuda_device, m, t, warm):
-    from omniswarm_torch.core.precision import highp
-
-    rng = np.random.default_rng(m + t)
-    A, B, X0 = (torch.from_numpy(v).to(cuda_device)
-                for v in _random_level(rng, 2 * t, m, warm))
-    launches = tfl.fused_reduction_level.launches
-    with highp():
-        got = tfl.fused_reduction_level(A, B, X0)
-        ref = tfl.fused_reduction_level_ref(A, B, X0)
-    torch.cuda.synchronize()
-    assert tfl.fused_reduction_level.launches == launches + 1
-    for name, g, r in zip(NAMES, got, ref):
-        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
-                                   err_msg=name, **TOL)
-
-
-@pytest.mark.cuda
-def test_cluster_size_rule_on_card(cuda_device):
-    """One wave of at most one CTA per SM: t = 128 pairs of 80-wide blocks
-    run one CTA each, the path's small levels a cluster of 8."""
-    from omniswarm_torch import kernels
-
-    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert kernels.fused_level_cluster(80, 128) == 1
-    assert kernels.fused_level_cluster(80, 4) == 8
-    assert kernels.fused_level_cluster(40, 4) == 8
-    assert kernels.fused_level_cluster(1, 4) == 1
-    for m in (40, 80):
-        for t in (128, 64, 32, 16, 8, 4):
-            c = kernels.fused_level_cluster(m, t)
-            assert c in (1, 2, 4, 8) and (c == 1 or t * c <= sms)

@@ -21,9 +21,13 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "omniswarm_tpu")
 
 def _port_files():
     files = sorted((ROOT / "omniswarm_torch").rglob("*.py"))
-    # with the scripts that run on the card, where JAX is not installed
+    # with the scripts and the cuda tests that run on the card, where JAX is
+    # not installed
     return files + [ROOT / "chip_smoke.py", ROOT / "tools/torch_repro_solve.py",
-                    ROOT / "tools/demo_draw_spread.py"]
+                    ROOT / "tools/demo_draw_spread.py"] + [
+        ROOT / f"tests/test_torch_{name}.py"
+        for name in ("kernels_card", "conv_epilogue", "conv3x3", "rgbd")] + [
+        ROOT / "tests/kernel_inputs.py"]
 
 
 def test_port_files_exist():
@@ -77,6 +81,8 @@ def test_port_files_exist():
                  "omniswarm_torch/models/train_netvlad.py",
                  "omniswarm_torch/train_entry.py",
                  "omniswarm_torch/bench.py",
+                 "omniswarm_torch/bench_kernels.py",
+                 "tests/test_torch_kernels_card.py",
                  "omniswarm_torch/bench_frontend.py",
                  "omniswarm_torch/online_window.py",
                  "omniswarm_torch/cpu_baseline.py",

@@ -12,7 +12,9 @@ depth map with noise and holes a drone):
   ``torch.profiler``, the host-only ones holding no torch op;
 - the port against the plain reference ``benchmark/reference/rgbd.py`` on
   seeded random SuperPoint and NetVLAD checkpoints, at 2 drones x 96 x 128
-  here and at 640 x 480 on a card (marked ``cuda``; it skips here).
+  here and at 640 x 480 on a card (marked ``cuda``; it skips here), where
+  the batch launches C1 9 times, E1 12 times and K2 once and runs no plain
+  kernel version.
 
 The file imports no JAX, so it also runs on a card without it:
 ``python -m pytest --noconftest tests/test_torch_rgbd.py -m cuda``.
@@ -30,6 +32,7 @@ from benchmark.reference import rgbd as ref_rgbd
 from omniswarm_torch.config import FrontendParams
 from omniswarm_torch.models.netvlad import init_mobilenetvlad, save_netvlad_npz
 from omniswarm_torch.models.superpoint import init_superpoint, save_flax_npz
+from omniswarm_torch.ops import frontend_kernels as fk
 from omniswarm_torch.swarm.loop_cam import CameraIntrinsics, LoopCam
 
 torch.set_num_threads(1)
@@ -176,6 +179,14 @@ def random_checkpoints(tmp_path, seed: int):
     return sp, nv
 
 
+def kernel_counts():
+    """Launches of C1, E1 and K2, and calls of their plain versions."""
+    return [fk.conv3x3.launches, fk.conv_epilogue.launches,
+            fk.grid_nms.launches,
+            fk.conv3x3_ref.calls + fk.conv_epilogue_ref.calls
+            + fk.grid_nms_ref.calls]
+
+
 @pytest.mark.parametrize("where", [
     "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
 def test_port_matches_the_plain_reference(tmp_path, where):
@@ -198,8 +209,14 @@ def test_port_matches_the_plain_reference(tmp_path, where):
     vio, step = frames(2, h, w, fx, seed=8, device=where)
     cam = make_cam(h, w, fx, where, superpoint_weights=sp,
                    netvlad_weights=nv)
+    before = kernel_counts()
     kfs = cam.on_depth_frames_batch(entries(vio, step))
     kp_valid = cam.last_kp_valid
+    if where == "cuda":
+        # one SuperPoint forward on the kernels and none on a plain version:
+        # C1 at its nine 3 x 3 convolutions, E1 at its 12 epilogues, K2 once
+        assert [a - b for a, b in zip(kernel_counts(), before)] == [
+            9, 12, 1, 0]
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -229,7 +246,7 @@ def test_port_matches_the_plain_reference(tmp_path, where):
         np.testing.assert_allclose(kf.global_desc, r.gdesc[d], atol=2e-5)
         assert np.array_equal(kf.valid[pi], r.ok[d][ri])
         lifted = kf.valid[pi]
-        assert lifted.sum() > 10
+        assert lifted.sum() > 10 and kf.valid.sum() == r.ok[d].sum()
         want = r.pts[d][ri][lifted]
         np.testing.assert_allclose(
             kf.landmarks_3d[pi][lifted], want,
