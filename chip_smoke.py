@@ -20,7 +20,8 @@ python3 -m omniswarm_torch.bench_kernels takes them.
    SOLVE_LEVELS shape and odd widths on three branches; K2 and K3 at the
    paths' batches and edge cases; E1 bit-equal at the main path's 12
    shapes; C1 against the direct convolution at the cells' shapes; the
-   RGB-D batch against benchmark/reference/rgbd.py), in one pytest
+   RGB-D batch against benchmark/reference/rgbd.py; the stereo batch's
+   one download and its merge bit-equal to the six-download one), in one pytest
    process. Every test must pass and none skip. The "kernels" line at the
    end gives the tests passed per test function, the largest error each
    recorded, and the launches the path phases counted.
@@ -321,7 +322,8 @@ ROOT = Path(__file__).resolve().parent
 # phase 2: the four JAX-free test files that hold every kernel's card check
 CARD_TESTS = ("tests/test_torch_kernels_card.py",
               "tests/test_torch_conv_epilogue.py",
-              "tests/test_torch_conv3x3.py", "tests/test_torch_rgbd.py")
+              "tests/test_torch_conv3x3.py", "tests/test_torch_rgbd.py",
+              "tests/test_torch_stereo_merge.py")
 K1_BRANCHES = ("warm", "fallback", "nan")
 MAIN_PATHS = (
     # F, launches per LM iteration, reference cost, relative-ATE bar

@@ -12,7 +12,9 @@ The batch runs on the device in true f32 (``core.precision.highp``: no TF32
 in matmuls or cuDNN convolutions); uint8 images are normalised on the
 device. Like the reference, which downloads them as f16, the pixel
 coordinates, local and global descriptors and landmarks are rounded to f16
-before they leave the device, so the two packages hand out the same values.
+on the device, so the two packages hand out the same values; they are then
+widened there (exactly) and leave it, with the masks, as one packed f32
+buffer in one download, which the host merge takes views of.
 Left out of the reference's LoopCam: the per-pair ``_extract_batch_fallback``
 (for injected test extractors) and the batch padding to multiples of 4
 (for XLA's compile cache); neither changes an output row of this path.
@@ -34,10 +36,10 @@ Besides the device stages' ``torch.profiler`` ranges (``frontend/netvlad``,
 ``frontend/matching``, ``frontend/triangulation``, ``frontend/depth_lift``),
 a batch's host phases carry ranges: ``frontend/stage`` (gathering, stacking
 and concatenating the views), ``frontend/upload`` (the views' copy to the
-device), ``frontend/download`` (the outputs' copies to the host) and
-``frontend/merge`` (the host casts and the per-drone merge). Stage and
-merge hold host numpy only, no torch op, so a profile's idle device gaps
-inside them carry their names. ``LoopCam.depth_lookups`` and
+device), ``frontend/download`` (the outputs' one copy to the host) and
+``frontend/merge`` (the split of that copy and the per-drone merge). Stage
+and merge hold host numpy only, no torch op, so a profile's idle device
+gaps inside them carry their names. ``LoopCam.depth_lookups`` and
 ``depth_rejected`` count, over the camera's life, the RGB-D keypoints
 looked up in a depth map and those the depth gate dropped.
 """
@@ -176,25 +178,40 @@ class LoopCam:
         return (xy_l.to(half), desc[:B].to(half), gdesc.to(half),
                 pts_body.to(half), ok, valid[:B])
 
+    @staticmethod
+    def _pack_stereo(out) -> torch.Tensor:
+        """``_extract_device``'s outputs as one (B, K * (2 + C + 3 + 2) + G)
+        float32 buffer in ``_depth_device``'s layout: the f16 values widened
+        (exactly) on the device, the masks as 0 / 1."""
+        xy, desc, gdesc, pts_body, ok, valid = out
+        B, half = xy.shape[0], torch.float16
+        return torch.cat([xy.reshape(B, -1), desc.reshape(B, -1),
+                          pts_body.reshape(B, -1), ok.to(half),
+                          valid.to(half), gdesc], 1).to(torch.float32)
+
     def extract_stereo_batch(self, lefts: np.ndarray, rights: np.ndarray):
         """Run the front-end on B stereo pairs.
 
         lefts/rights: (B, H, W) grayscale, uint8 or in [0, 1]. Returns numpy
         (kp_xy (B,K,2), local_desc (B,K,C), global_desc (B,G),
-        landmarks_body (B,K,3), valid (B,K)).
+        landmarks_body (B,K,3), valid (B,K)); kp_xy, local_desc and
+        landmarks_body are views of the one float32 download.
         """
         with highp():
-            out = self._extract_device(np.asarray(lefts), np.asarray(rights))
+            packed = self._pack_stereo(self._extract_device(
+                np.asarray(lefts), np.asarray(rights)))
         with record_function("frontend/download"):
-            xy, desc, gdesc, pts_body, ok, kp_valid = (t.cpu().numpy()
-                                                       for t in out)
+            packed = packed.cpu().numpy()
         with record_function("frontend/merge"):
-            self.last_kp_valid = kp_valid
-            gdesc = gdesc.astype(np.float32)
+            B, (K, C) = len(packed), (self.p.max_keypoints,
+                                      self.p.local_desc_dim)
+            xy, desc, pts, ok, kp_valid, gdesc = np.split(
+                packed, np.cumsum([2 * K, C * K, 3 * K, K, K]), axis=1)
+            ok, self.last_kp_valid = ok > 0.5, kp_valid > 0.5
             gdesc = gdesc / np.maximum(
                 np.linalg.norm(gdesc, axis=-1, keepdims=True), 1e-8)
-            return (xy.astype(np.float32), desc.astype(np.float32),
-                    gdesc, pts_body.astype(np.float32), ok.astype(bool))
+            return (xy.reshape(B, K, 2), desc.reshape(B, K, C), gdesc,
+                    pts.reshape(B, K, 3), ok)
 
     def on_stereo_frame(self, drone_id: int, frame_id: int, t: float,
                         vio_pose: np.ndarray, left: np.ndarray,
@@ -306,10 +323,15 @@ class LoopCam:
 
 
 def yaw_rotate_np(yaw: float, pts: np.ndarray) -> np.ndarray:
-    c, s = np.cos(yaw), np.sin(yaw)
+    return turn_np(np.cos(yaw), np.sin(yaw), pts)
+
+
+def turn_np(c, s, pts: np.ndarray) -> np.ndarray:
+    """pts (..., 3) turned about z by the angle whose cosine and sine are
+    c and s (scalars or arrays that broadcast against pts[..., 0])."""
     out = pts.copy()
-    out[:, 0] = c * pts[:, 0] - s * pts[:, 1]
-    out[:, 1] = s * pts[:, 0] + c * pts[:, 1]
+    out[..., 0] = c * pts[..., 0] - s * pts[..., 1]
+    out[..., 1] = s * pts[..., 0] + c * pts[..., 1]
     return out
 
 
@@ -355,14 +377,17 @@ class OmniLoopCam(LoopCam):
         """
         view_yaws = self.VIEW_YAWS if view_yaws is None else view_yaws
         with record_function("frontend/stage"):
-            lefts, rights, owners = [], [], []
-            for e, (_d, _f, _t, _pose, stereo_pairs) in enumerate(entries):
+            # an entry's views are the rows [start, end) of the batch
+            lefts, rights, dirs, bounds = [], [], [], []
+            for _d, _f, _t, _pose, stereo_pairs in entries:
+                start = len(dirs)
                 for v, pair in enumerate(stereo_pairs):
                     if pair is None:
                         continue
                     lefts.append(np.asarray(pair[0]))
                     rights.append(np.asarray(pair[1]))
-                    owners.append((e, v))
+                    dirs.append(v)
+                bounds.append((start, len(dirs)))
             if not lefts:
                 raise ValueError("no valid fisheye views")
             lefts, rights = np.stack(lefts), np.stack(rights)
@@ -371,23 +396,22 @@ class OmniLoopCam(LoopCam):
 
         out = []
         with record_function("frontend/merge"):
-            for e, (drone_id, frame_id, t, vio_pose, _pairs) in \
-                    enumerate(entries):
-                rows = [i for i, (eo, _v) in enumerate(owners) if eo == e]
-                if not rows:
+            # a direction's cosine and sine from scalar calls, as
+            # yaw_rotate_np takes them (np.cos of an array may round apart)
+            cs = np.array([(np.cos(y), np.sin(y)) for y in view_yaws])[dirs]
+            lms = turn_np(cs[:, :1], cs[:, 1:], pts_body)
+            for e, ((drone_id, frame_id, t, vio_pose, _pairs), (a, b)) in \
+                    enumerate(zip(entries, bounds)):
+                if a == b:
                     raise ValueError(f"entry {e}: no valid fisheye views")
-                kp_xy = np.concatenate([xy[i] for i in rows], 0)
-                lms = np.concatenate(
-                    [yaw_rotate_np(view_yaws[owners[i][1]], pts_body[i])
-                     for i in rows], 0)
-                descs = np.concatenate([desc[i] for i in rows], 0)
-                valid = np.concatenate([ok[i] for i in rows], 0)
-                gd = np.mean([gdesc[i] for i in rows], axis=0)
+                gd = np.mean(list(gdesc[a:b]), axis=0)
                 gd = gd / max(np.linalg.norm(gd), 1e-8)
                 out.append(KeyframeData(
                     drone_id=drone_id, frame_id=frame_id, t=t,
                     pose=np.asarray(vio_pose, np.float32),
-                    global_desc=gd.astype(np.float32), kp_xy=kp_xy,
-                    landmarks_3d=lms.astype(np.float32), local_desc=descs,
-                    valid=valid))
+                    global_desc=gd.astype(np.float32),
+                    kp_xy=xy[a:b].reshape(-1, 2),
+                    landmarks_3d=lms[a:b].reshape(-1, 3),
+                    local_desc=desc[a:b].reshape(-1, desc.shape[-1]),
+                    valid=ok[a:b].reshape(-1)))
         return out

@@ -26,7 +26,8 @@ def _port_files():
     return files + [ROOT / "chip_smoke.py", ROOT / "tools/torch_repro_solve.py",
                     ROOT / "tools/demo_draw_spread.py"] + [
         ROOT / f"tests/test_torch_{name}.py"
-        for name in ("kernels_card", "conv_epilogue", "conv3x3", "rgbd")] + [
+        for name in ("kernels_card", "conv_epilogue", "conv3x3", "rgbd",
+                     "stereo_merge")] + [
         ROOT / "tests/kernel_inputs.py"]
 
 
